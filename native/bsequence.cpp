@@ -3,7 +3,7 @@
 // The reference ships this surface as an *unimplemented* skeleton
 // (/root/reference/c_shim/src/lib.rs: every body is unimplemented!()).
 // This is a complete C++ implementation with the same ABI so C callers of
-// liquid's bsequence API can link against the TPU framework's native layer.
+// liquid's bsequence API can link against the framework's native layer.
 // Semantics follow /root/reference/src/sequence/bsequence.rs (which follows
 // liquid-dsp): bits packed into 32-bit words, pushed in from the right.
 //

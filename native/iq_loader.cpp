@@ -1,6 +1,6 @@
 // Native double-buffered IQ stream loader.
 //
-// The TPU-native runtime ingests continuous IQ sample streams in planar
+// The runtime ingests continuous IQ sample streams in planar
 // re/im float32 blocks (complex at the device boundary is rejected by the
 // production runtime — see yagi_tpu/utils/planar.py). This loader does the
 // host-side IO work off the Python thread: a background reader thread
@@ -10,7 +10,7 @@
 // the disk cannot keep up with the device.
 //
 // The reference has no IO layer at all (yagi is a pure in-memory library);
-// this is part of the runtime the TPU build adds (SURVEY.md §2.7).
+// this is part of the runtime this framework adds (SURVEY.md §2.7).
 //
 // C ABI (ctypes-friendly, no C++ types across the boundary):
 //   void* iql_open(const char* path, int format, long block_samples,

@@ -1,6 +1,6 @@
 """Arbitrary-rate Farrow fast path (filter/_farrow_resamp.py).
 
-The TPU production mode for truly-arbitrary rates: prototype-FIR on a 2x
+The gather-free fast path for truly-arbitrary rates: prototype-FIR on a 2x
 half-integer grid + LS-designed polynomial interpolator evaluated at the
 exact u32 emission times. The emission SCHEDULE (counts, carried phase,
 window state) is bit-identical to the reference u32 gather path; VALUES
@@ -65,7 +65,7 @@ class TestFarrowResamp:
         na = int(na)
         # full valid range (only the leading filter transient excluded):
         # aggregate SNR plus a per-sample cap, so a few zeroed/corrupt
-        # samples cannot hide in the average (ADVICE r4)
+        # samples cannot hide in the average
         ref = np.asarray(ya)[:na]
         got = np.asarray(yb)[:na]
         snr = _snr_db(ref[64:], got[64:])
@@ -133,8 +133,8 @@ class TestFarrowResamp:
 
     def test_reset_recertifies_fast_path(self):
         """reset() after a traced set_rate must restore BOTH the static
-        schedule and the farrow step certificate (ADVICE r4 low: step_cert
-        stayed None, silently disabling the fast path forever)."""
+        schedule and the farrow step certificate (a step_cert left at None
+        would silently disable the fast path forever)."""
         r = Resamp.create(2.0, interp="farrow")
         nominal_cert = r.step_cert
         assert nominal_cert is not None
@@ -150,7 +150,7 @@ class TestFarrowResamp:
         """Every valid emission — including the block tail, and with an
         oversized output capacity — matches the u32 path per-sample.
 
-        Regression for ADVICE r4 (high): the exact-dotprod tail window was
+        Regression: the exact-dotprod tail window was once
         anchored to out_capacity instead of the emission schedule, so any
         capacity slack beyond ~rate+2 slots silently zeroed valid tail
         emissions."""

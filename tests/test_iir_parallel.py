@@ -132,8 +132,8 @@ class TestParallelIir:
 
     def test_biquad_poles_at_0p99_parity(self):
         """Near-unit-circle poles (r=0.99): parallel companion path stays
-        within fp32 tolerance of the sequential scan (advisor r2 guard,
-        filter/_linrec.py numerical-guard note)."""
+        within fp32 tolerance of the sequential scan (filter/_linrec.py
+        numerical-guard note)."""
         r, w = 0.99, 0.3
         a = np.array([1.0, -2 * r * np.cos(w), r * r], dtype=np.float32)
         b = np.array([1.0, 0.0, 0.0], dtype=np.float32)

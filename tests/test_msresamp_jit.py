@@ -1,6 +1,6 @@
 """MsResamp end-to-end jit (valid-prefix composite, msresamp.rs:126-164).
 
-The round-1 implementation was host-orchestrated (a host sync per block to
+An earlier implementation was host-orchestrated (a host sync per block to
 compact the arbitrary stage's variable-length output); execute_block now
 threads exact traced counts through fixed-capacity buffers, so a streaming
 pipeline containing MsResamp stays on-device for its whole life.

@@ -1,9 +1,10 @@
-"""Native C ABI shim + Pallas kernel tests.
+"""Native C ABI shim tests.
 
 The native test proves the C++ implementation of liquid's bsequence ABI
 (which the reference left unimplemented) matches the Python BSequence
-bit-for-bit. The Pallas kernel test runs in interpreter mode on CPU against
-the Osc reference implementation.
+bit-for-bit. The oscillator test pins the exact-mode block mixer that the
+fused chain kernel reproduces (kernels/chain.py) against a float64 model of
+its wrapping u32 phase ramp.
 """
 
 import numpy as np
@@ -91,23 +92,22 @@ class TestNativeBsequence:
             assert nb.index(i) == py.index(i)
 
 
-class TestPallasKernels:
-    def test_mix_kernel_interpret(self):
-        """Pallas fused mixer == Osc.mix_block_down (u32-exact), interpreted."""
-        from yagi_tpu.kernels import pallas_mix_down
+class TestExactMixer:
+    def test_mix_block_down_matches_u32_ramp(self):
+        """Osc.mix_block_down ("exact") == x·exp(-j·2π·θ_n/2^32) with the
+        u32 phase θ_n = θ0 + n·dθ wrapping mod 2^32."""
         from yagi_tpu.nco import Osc
 
         n = 32768
         rng = np.random.default_rng(0)
-        x = jnp.asarray(
-            (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
-        )
+        x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
         o = Osc.create("exact").set_frequency(0.37).set_phase(1.1)
-        y_ref, _ = o.mix_block_down(x)
-        y_pl = pallas_mix_down(x, o.theta, o.d_theta, interpret=True)
-        np.testing.assert_allclose(
-            np.asarray(y_pl), np.asarray(y_ref), rtol=1e-6, atol=1e-6
-        )
+        y, o2 = o.mix_block_down(jnp.asarray(x))
+        th0, dth = int(o.theta), int(o.d_theta)
+        theta = (th0 + np.arange(n, dtype=np.uint64) * dth) % (1 << 32)
+        ref = x * np.exp(-2j * np.pi * theta.astype(np.float64) / 2.0**32)
+        np.testing.assert_allclose(np.asarray(y), ref, rtol=1e-5, atol=1e-5)
+        assert int(o2.theta) == (th0 + n * dth) % (1 << 32)
 
 
 class TestIqStreamLoader:

@@ -182,7 +182,7 @@ class TestChannelRedistribution:
 
 class TestPipelinedStream:
     """Double-buffered streaming channelizer: the all_to_all for block t
-    overlaps block t+1's analyzer compute (VERDICT r3 #1; SCALING.md §4)."""
+    overlaps block t+1's analyzer compute (SCALING.md §4)."""
 
     def test_stream_bit_identical(self, devices_ok):
         """Pipelined B-block stream == single-device analyzer over the

@@ -1,7 +1,7 @@
 """Arbitrary resampler + NCO conformance tests.
 
 The resampler oracle is a direct NumPy re-implementation of the reference's
-per-sample u32 phase loop (resamp.rs:141-154); the TPU formulation must match
+per-sample u32 phase loop (resamp.rs:141-154); the block-parallel formulation must match
 it output-for-output and phase-for-phase (bit-exact integer schedule, float32
 tolerance on sample values). NCO oracle: u32 phase ramp + LUT semantics
 (nco.rs:47-51, vco.rs, osc.rs:191-200).

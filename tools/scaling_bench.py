@@ -7,9 +7,9 @@ mesh of 1/2/4/... virtual CPU devices, holding the PER-DEVICE workload fixed
 Also cross-checks the sharded output against a single-device run
 (bit-identity, the config[4] acceptance criterion).
 
-Multi-chip TPU hardware is not reachable from this environment, so the mesh
+Multi-device hardware is not assumed here, so the mesh
 is virtual (host CPU devices); the collective pattern (one ppermute halo
-exchange per block) is identical to what XLA emits for real ICI.
+exchange per block) is identical to what XLA emits for real devices.
 
 Usage: python tools/scaling_bench.py [--devices 8] [--steps-per-dev 4096]
 """
@@ -56,7 +56,7 @@ def main() -> int:
     if jax.devices()[0].platform == "cpu":
         print(
             "note: virtual CPU devices share host cores — weak-efficiency "
-            "here measures host contention, not ICI cost; run on a real "
+            "here measures host contention, not interconnect cost; run on a real "
             "multi-chip mesh for hardware scaling numbers"
         )
 
@@ -120,7 +120,7 @@ def main() -> int:
 
     pathlib.Path("SCALING.json").write_text(json.dumps({
         "workload": "64-ch firpfbch + per-channel FM (config[4])",
-        "mesh": "virtual CPU devices (host-core contention, not ICI; see note)",
+        "mesh": "virtual CPU devices (host-core contention, not interconnect; see note)",
         "weak_scaling": records,
         "bit_identity_at_max_mesh": ok,
     }, indent=1))

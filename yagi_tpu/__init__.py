@@ -1,7 +1,7 @@
-"""yagi_tpu — a TPU-native DSP/SDR framework in JAX/XLA/Pallas.
+"""yagi_tpu — a DSP/SDR framework in JAX/XLA/Pallas.
 
 A from-scratch reimagination of liquid-dsp (as realized by the Rust rewrite
-"yagi", see SURVEY.md) for TPU hardware: batched, block-streaming kernels with
+"yagi", see SURVEY.md) for accelerators: batched, block-streaming kernels with
 explicit state pytrees instead of per-sample mutable objects; XLA convolutions
 and FFTs plus Pallas kernels on the hot path; multi-device scaling via
 jax.sharding / shard_map with overlap-save halo exchange.
@@ -21,7 +21,7 @@ Layer map (mirrors SURVEY.md §1):
   modem/      L6 linear modems, FM, FSK
   framing/    L7 symbol stream generators
   multichannel/  polyphase channelizers (firpfbch) — the flagship workload
-  kernels/    Pallas TPU kernels for the hot paths
+  kernels/    Pallas (Triton route) kernels for the hot paths
   parallel/   device-mesh sharding, halo exchange, streaming block runner
 """
 

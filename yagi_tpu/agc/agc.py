@@ -237,11 +237,10 @@ class Agc:
         """Gain-control a block via time scan (agc.rs:91).
 
         Scan boundaries are planar f32 (xs split re/im, ys one packed f32
-        array): the production TPU toolchain runs scans with complex or
-        multi-array ys >1000× slow (kernels/ROOFLINE.md feedback-scan rules).
+        array), the boundary rules of :func:`yagi_tpu.utils.planar.planar_scan`.
         ``samples_per_step`` packs S samples into each scan step (default 1;
-        S must divide the block length) to amortize the ~1.5 µs while-loop
-        fixed cost per step. Results are bit-identical for any S (samples
+        S must divide the block length) to amortize the while-loop's fixed
+        cost per step. Results are bit-identical for any S (samples
         are applied sequentially within a step).
         """
         x = jnp.asarray(x)

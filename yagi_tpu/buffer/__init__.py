@@ -6,7 +6,7 @@ sliding window), /root/reference/src/buffer/wdelay.rs (fixed delay line).
 (/root/reference/src/buffer/mod.rs:1-5 "cbuffer missing") from liquid-dsp's
 cbuffer semantics.
 
-In the TPU framework these host-side objects exist for API parity and for
+In this framework these host-side objects exist for API parity and for
 host-side orchestration (framing, test harnesses). The *hot-path* analog is
 the explicit window/state arrays every `yagi_tpu.filter` pytree carries:
 a `Window` of length n is an `[..., n]` array rolled by `jnp.concatenate`

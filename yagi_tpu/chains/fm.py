@@ -78,7 +78,7 @@ class FmStereoRx:
         align = FirFilter.create(h_delay, batch_shape=batch_shape, dtype=jnp.float32)
         # single-pole de-emphasis: H(z) = α/(1-(1-α)z⁻¹), run via the
         # log-depth parallel recurrence (filter/_linrec.py) — the only
-        # sequential-scan stage in this chain, and its TPU bottleneck
+        # sequential-scan stage in this chain
         mk_deemph = lambda: IirFilter.create(  # noqa: E731
             [deemph_alpha], [1.0, -(1.0 - deemph_alpha)],
             batch_shape=batch_shape, dtype=jnp.float32,

@@ -1,18 +1,18 @@
-"""Production fused receive chain (Pallas kernel path, planar I/O).
+"""Fused receive chain (one Triton kernel on the GPU, planar I/O).
 
 Same DSP as :class:`yagi_tpu.chains.RxChain` — 64-tap kaiser FIR lowpass →
 P× polyphase interpolating resampler (u32 phase, resamp.rs:141-154) → NCO
 mix-down (osc.rs:179) — specialized to integer rates so the whole chain runs
-as ONE Pallas kernel streaming x through VMEM once (kernels/chain.py).
+as ONE kernel that reads the input stream once (kernels/chain.py).
 
 State is 128 samples of raw input history (from which both the FIR window,
 firfilt.rs:220, and the resampler's PFB window are implied) plus the u32 NCO
 phase. The resampler phase accumulator is identically 0 at every block edge
 because step·P = 2^24 exactly.
 
-I/O is planar (re/im f32): the production TPU runtime requires real dtypes
-at jit boundaries (utils/planar.py). ``step`` offers a complex convenience
-wrapper for host/CPU use.
+``backend="auto"`` takes the kernel on a GPU and the plain XLA formulation
+of the same combined filter (:func:`~yagi_tpu.kernels.chain.chain_reference`)
+elsewhere. I/O is planar (re/im f32); ``step`` offers a complex wrapper.
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ from .._src import struct
 from .. import design
 from ..errors import ConfigError
 from ..filter.firpfb import pfb_decompose
-from ..kernels.chain import chain_matrices, fused_chain_apply
+from ..kernels import BACKENDS, use_kernel
+from ..kernels.chain import HIST, chain_reference, chain_taps, fused_chain_apply
 from ..nco import Osc
 
 __all__ = ["FusedRxChain"]
@@ -36,10 +37,9 @@ class FusedRxChain:
     """Fused firfilt→resamp(P×)→mix_down chain state."""
 
     p: int = struct.static_field()  # integer interpolation rate
-    r: int = struct.static_field()  # kernel rows (128 samples each) per tile
-    precision: str = struct.static_field()
-    interpret: bool = struct.static_field()
-    g: jnp.ndarray = struct.field()  # [2, 128, 128·P] banded chain matrices
+    backend: str = struct.static_field()  # "auto" | "xla" | "triton"
+    interpret: bool = struct.static_field()  # Pallas interpret mode (tests)
+    g: jnp.ndarray = struct.field()  # [K, P] combined chain filters
     hist_r: jnp.ndarray = struct.field()  # [C, 128] input history planes
     hist_i: jnp.ndarray = struct.field()
     theta: jnp.ndarray = struct.field()  # u32 NCO phase
@@ -56,89 +56,64 @@ class FusedRxChain:
         m: int = 7,
         npfb: int = 256,
         batch_shape: tuple = (),
-        r: int = 16,
-        precision: str = "highest",
+        backend: str = "auto",
+        interpret: bool = False,
     ) -> "FusedRxChain":
         p = int(round(rate))
         if p != rate or p < 1:
             raise ConfigError("FusedRxChain requires an integer rate")
         if npfb % p or (1 << 24) % p:
             raise ConfigError("rate must divide npfb and 2^24")
+        if backend not in BACKENDS:
+            raise ConfigError(f"unknown backend {backend!r}")
         # reference-parity designs, all host-side numpy (jit-safe)
         h_fir = design.fir_design_kaiser(n_taps, fc, as_, 0.0)
         n = 2 * m * npfb + 1
         hf = design.fir_design_kaiser(n, 0.25 / npfb, as_, 0.0)
         h_pfb = (hf * (npfb / np.sum(hf))).astype(np.float32)
         branches = pfb_decompose(h_pfb[: n - 1], npfb)
-        g = chain_matrices(h_fir, 2.0 * fc, branches, p)
+        g = chain_taps(h_fir, 2.0 * fc, branches, p)
         if len(batch_shape) != 1:
             raise ConfigError("FusedRxChain takes batch_shape=(channels,)")
         c = batch_shape[0]
         osc = Osc.create("exact").set_frequency(mix_freq)
         return cls(
             p=p,
-            r=r,
-            precision=precision,
-            interpret=False,
+            backend=backend,
+            interpret=interpret,
             g=jnp.asarray(g),
-            hist_r=jnp.zeros((c, 128), jnp.float32),
-            hist_i=jnp.zeros((c, 128), jnp.float32),
+            hist_r=jnp.zeros((c, HIST), jnp.float32),
+            hist_i=jnp.zeros((c, HIST), jnp.float32),
             theta=osc.theta,
             d_theta=osc.d_theta,
         )
 
-    def _precision(self):
-        return {
-            "highest": jax.lax.Precision.HIGHEST,
-            "high": jax.lax.Precision.HIGH,
-            "default": jax.lax.Precision.DEFAULT,
-            # documented-tolerance 3-pass bf16 split (~2^-21 rel);
-            # see kernels/chain.py dot3
-            "bf16x3": "bf16x3",
-        }[self.precision]
+    def uses_kernel(self, block_len: int) -> bool:
+        """Whether a block of ``block_len`` samples takes the kernel."""
+        return use_kernel(self.backend, block_len > 0 and block_len % HIST == 0)
 
     # ------------------------------------------------------------- streaming
     def step_planar(self, xr, xi):
         """Planar block step: returns (yr, yi, num_valid, new_chain)."""
-        # auto-grow the tile to the measured optimum when the block allows:
-        # r only affects Mosaic scheduling (results are tile-invariant, see
-        # tests/test_fused_chain.py parity), and r=64 measures ~12% faster
-        # than r=32 on-chip (KERNEL_VARIANTS.json; r=128 crashes the remote
-        # compiler — never exceed 64). Shapes are static under jit, so this
-        # resolves at trace time.
-        nb = xr.shape[-1] // 128
-        r = self.r
-        if nb > 0:
-            for cand in (64, 32, 16, 8, 4, 2, 1):
-                if nb % cand == 0:
-                    # largest power-of-two tile the block admits; also
-                    # shrinks below self.r when the block demands it
-                    # (correctness over the configured tile hint)
-                    r = cand
-                    break
-        yr, yi = fused_chain_apply(
-            xr,
-            xi,
-            self.g,
-            self.hist_r,
-            self.hist_i,
-            self.theta,
-            self.d_theta,
-            p=self.p,
-            r=r,
-            precision=self._precision(),
-            interpret=self.interpret,
-        )
         t = xr.shape[-1]
+        args = (xr, xi, self.g, self.hist_r, self.hist_i, self.theta,
+                self.d_theta)
+        if self.uses_kernel(t):
+            yr, yi = fused_chain_apply(*args, interpret=self.interpret)
+        else:
+            yr, yi = chain_reference(*args)
+        if t < HIST:
+            xr = jnp.concatenate([self.hist_r, xr], axis=-1)
+            xi = jnp.concatenate([self.hist_i, xi], axis=-1)
         new = self.replace(
-            hist_r=xr[:, -128:],
-            hist_i=xi[:, -128:],
+            hist_r=xr[:, -HIST:],
+            hist_i=xi[:, -HIST:],
             theta=self.theta + jnp.uint32(t * self.p) * self.d_theta,
         )
         return yr, yi, jnp.int32(t * self.p), new
 
     def step(self, x):
-        """Complex convenience wrapper (CPU/tests; planar I/O on TPU)."""
+        """Complex convenience wrapper around :meth:`step_planar`."""
         x = jnp.asarray(x)
         yr, yi, k, new = self.step_planar(
             jnp.real(x).astype(jnp.float32), jnp.imag(x).astype(jnp.float32)

@@ -50,8 +50,7 @@ class RxChain:
 
         The resample and mix stages run through the fused
         ``execute_block_mix_down`` path (one XLA fusion instead of a second
-        HBM pass over the 2×-rate stream — ~2.5× end-to-end on TPU);
-        bit-identical to the unfused execute_block + mix_block_down_n.
+        pass over the 2×-rate stream in device memory); bit-identical to the unfused execute_block + mix_block_down_n.
         """
         y0, fir = self.fir.execute_block(x)
         y2, k, rs, osc = self.resamp.execute_block_mix_down(y0, self.osc)

@@ -145,8 +145,7 @@ class Eqlms:
         """Supervised training over (x, d) pairs via scan.
 
         Per sample: push, y = execute, update toward d. Returns outputs.
-        Scan boundaries are planar f32 (TPU feedback-scan dtype rules,
-        kernels/ROOFLINE.md).
+        Scan boundaries are planar f32 (``utils.planar.planar_scan`` rules).
         """
         from ..utils.planar import planarize, unplanarize
 

@@ -7,16 +7,16 @@ Golay(24,12), convolutional codes (ka9q K=7/K=9/K=15 polynomials, plus
 punctured rates), Reed-Solomon (255,223), a block interleaver, and the
 packetizer that composes them.
 
-TPU-first design (not a translation — the reference has no code here):
+Block-parallel design (not a translation — the reference has no code here):
 
 - Linear block codes (Hamming/SECDED/Golay/rep) are expressed as *batched
   mod-2 matrix products*: encode is ``bits @ G % 2``, syndrome is
-  ``bits @ H.T % 2`` — integer matmuls that XLA tiles onto the MXU, batched
+  ``bits @ H.T % 2`` — integer matmuls, batched
   over an arbitrary number of codewords at once.
 - Convolutional encode is binary convolution mod 2 (one XLA conv); Viterbi
   decode is a ``lax.scan`` over time whose body updates all 2^(K-1) path
   metrics simultaneously (vectorized add-compare-select) — the classic
-  SIMD-Viterbi layout, which maps directly onto the TPU vector unit.
+  SIMD-Viterbi layout, which maps directly onto vector units.
 - Reed-Solomon runs host-side in vectorized numpy over blocks (GF(256)
   log/antilog tables); it is a packet-rate operation, not a sample-rate one.
 

@@ -5,9 +5,9 @@ block-code set (LIQUID_COMPAT.md:171-300 feature rows):
 hamming74, hamming84 (extended), hamming128 = (12,8), hamming1511,
 hamming3126, secded2216, secded3932, secded7264, rep3, rep5.
 
-TPU-first formulation: a codeword batch is a bit matrix ``[blocks, k]``;
+Block-parallel formulation: a codeword batch is a bit matrix ``[blocks, k]``;
 encode is ``bits @ G % 2`` and the syndrome is ``bits @ H.T % 2`` — integer
-matmuls XLA maps straight onto the MXU. Decode is *branch-free*
+matmuls. Decode is *branch-free*
 (syndrome -> error-position lookup -> one-hot XOR), so the whole
 decode path jits cleanly and vmaps over any number of blocks.
 

@@ -1,11 +1,11 @@
-"""Convolutional codes with a vectorized TPU Viterbi decoder.
+"""Convolutional codes with a vectorized Viterbi decoder.
 
 Fills the reference's empty fec module; behavioral spec is liquid-dsp's
 convolutional set (LIQUID_COMPAT.md fec rows): the ka9q codes
 V27 (K=7, r=1/2), V29 (K=9, r=1/2), V39 (K=9, r=1/3), V615 (K=15, r=1/6),
 plus punctured rates p/(p+1) for p in 2..7 on the K=7 and K=9 base codes.
 
-TPU-first design:
+Block-parallel design:
 
 - **Encode** is binary convolution mod 2: output stream j is
   ``convolve(x, g_j) & 1`` — one pass of vectorized numpy (or an XLA conv);
@@ -14,7 +14,7 @@ TPU-first design:
   time: the scan body performs one add-compare-select across *all*
   2^(K-1) path metrics at once (pure vector ops — gathers, adds, minima),
   storing one decision bit per state per step; a second scan runs the
-  traceback. States are the vector lane axis, so the TPU VPU processes
+  traceback. States are the vector axis, so the device processes
   the whole trellis column per cycle group. Soft-decision input: each
   received level in [0,1] (0.5 = erasure, which is how punctured
   positions are filled).

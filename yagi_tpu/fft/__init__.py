@@ -3,9 +3,9 @@
 Behavioral spec: /root/reference/src/fft/mod.rs. Conventions (fft/mod.rs:125-150
 test runner): forward transform is unnormalized (e^{-j2πkn/N} kernel), the
 inverse is unnormalized too — callers divide by N. This matches jnp.fft.fft /
-jnp.fft.ifft·N, which XLA lowers to the TPU's native FFT.
+jnp.fft.ifft·N, which XLA lowers to the device's FFT library.
 
-Unlike the reference (which delegates to the third-party rustfft), the TPU
+Unlike the reference (which delegates to the third-party rustfft), this
 build leans on XLA's FFT; arbitrary sizes (radix-2, composite, prime) are all
 supported and validated against the reference's golden vectors.
 """

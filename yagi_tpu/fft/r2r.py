@@ -5,8 +5,8 @@ ported": LIQUID_COMPAT.md:419-446 all ❓); behavioral spec is liquid-dsp /
 FFTW's eight REDFT/RODFT kinds with FFTW's unnormalized conventions
 (forward·inverse = logical-size identity scale).
 
-TPU-first: each kind is one basis matmul ``y = B @ x`` batched over leading
-dims — an MXU-native formulation that is exact for any N (including the
+Block-parallel: each kind is one basis matmul ``y = B @ x`` batched over leading
+dims — a matmul formulation that is exact for any N (including the
 odd/prime sizes liquid's autotests use) and fuses with neighboring ops
 under jit. The basis is built host-side once per (kind, N) and cached.
 """

@@ -1,10 +1,10 @@
-"""Streaming spectral periodogram (batched TPU formulation).
+"""Streaming spectral periodogram (batched formulation).
 
 Behavioral spec: /root/reference/src/fft/spgram.rs. The reference pushes one
 sample at a time into a sliding window and runs one FFT every ``delay``
 samples (spgram.rs:237-288). Here a whole block is processed at once: all
 frame positions inside the block are gathered into a [frames, nfft] matrix and
-transformed with ONE batched FFT (MXU/VPU-friendly), and the PSD accumulation
+transformed with ONE batched FFT, and the PSD accumulation
 recurrence is applied in closed form:
 
   accumulate mode (alpha = -1): psd += Σ |F_t|²           (plain sum)

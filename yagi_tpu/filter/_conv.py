@@ -2,7 +2,7 @@
 
 These map the per-sample dotprod hot loop of the reference
 (/root/reference/src/dotprod/mod.rs:19-121, firfilt.rs:241-245) onto XLA's
-conv_general_dilated, which the TPU backend tiles onto the MXU. All streaming
+dense matmuls and conv_general_dilated at HIGHEST precision. All streaming
 filters operate on the LAST axis with arbitrary leading batch/channel dims.
 """
 
@@ -20,25 +20,22 @@ def result_dtype(x_dtype, h_dtype):
     return jnp.promote_types(x_dtype, h_dtype)
 
 
-_ROW = 128  # TPU lane width: output samples per banded-matmul row
+_ROW = 128  # output samples per banded-matmul row
 # Beyond this, FftFilt (overlap-add) is the right tool. Note the banded form
 # materializes the window tensor F at nband ≈ ceil(L/128)+1 times the input
-# size (~9x for L near the cutoff); if VMEM/HBM working-set pressure shows
-# up for very long stride-1 FIRs on large blocks, lower this cutoff or route
-# L > ~256 through FftFilt instead (advisor r2 note).
+# size (~9x for L near the cutoff); if working-set pressure shows up for
+# very long stride-1 FIRs on large blocks, lower this cutoff or route
+# L > ~256 through FftFilt instead.
 _MM_MAX_TAPS = 1024
 
 
 def _banded_matmul_conv(xa: jnp.ndarray, h: jnp.ndarray) -> jnp.ndarray:
     """Stride-1 causal conv as ONE dense matmul against a banded tap matrix.
 
-    XLA's conv with 1 input/output feature cannot tile onto the MXU (it runs
-    ~30x slower than the same FLOPs as a matmul on TPU — measured 3.0/9.6 ms
-    for a 129-tap real/complex FIR over [16, 16384] vs ~0.1 ms here). Views
-    the stream as 128-sample rows; each output row is the lane-concatenated
-    [row | next nband−1 rows] window times G[u, t] = h[t + L − 1 − u] —
-    the same banded formulation as the fused Pallas chain kernel
-    (kernels/chain.py), in plain XLA.
+    A conv with one input/output feature has no matmul structure for the
+    compiler to exploit; this form hands it one dense matmul instead. Views
+    the stream as 128-sample rows; each output row is the concatenated
+    [row | next nband−1 rows] window times G[u, t] = h[t + L − 1 − u].
     """
     L = h.shape[0]
     out_dtype = result_dtype(xa.dtype, h.dtype)
@@ -76,7 +73,7 @@ def causal_conv_valid(xa: jnp.ndarray, h: jnp.ndarray, stride: int = 1) -> jnp.n
     ``xa`` already includes the L-1 history samples on the left, so this is a
     VALID correlation with the flipped kernel — exactly the reference's
     window·h dotprod per output sample (firfilt.rs:241). Stride-1 filters of
-    practical length run as a banded MXU matmul (see _banded_matmul_conv);
+    practical length run as a banded matmul (see _banded_matmul_conv);
     strided (decimating) and very long filters keep the conv formulation.
     """
     h = jnp.asarray(h)
@@ -108,14 +105,12 @@ def banded_branch_matrix(branches: np.ndarray, row: int | None = None
 
     G[u, t·M + i] = branches[i, t + L − 1 − u] (zero outside [0, L)). Build
     ONCE at object-creation time: constructing it in-graph from a traced
-    branches array is a ~2M-element gather per call (~15 ms on TPU).
+    branches array is a ~2M-element gather per call.
 
     ``row`` is the output row-block size. Default: 64 for short banks
-    (L ≤ 65 → band depth K = 128, one full MXU pass) and 128 otherwise —
-    a 128 row block rounds K to 256 for a 29-tap bank, paying 2× the MACs
-    of the K=128 form at identical accuracy (measured: the symsync
-    precompute was 22.4 ms of the 27 ms kernel-path block at C=1024;
-    ROOFLINE round-5 notes).
+    (L ≤ 65 → band depth K = 128) and 128 otherwise — a 128 row block
+    rounds K to 256 for a 29-tap bank, paying 2× the MACs of the K=128 form
+    at identical accuracy.
     """
     branches = np.asarray(branches)
     M, L = branches.shape
@@ -164,8 +159,8 @@ def multi_branch_conv_tm(xa: jnp.ndarray, branches: jnp.ndarray) -> jnp.ndarray:
     Same math as :func:`multi_branch_conv` but returns the banded-matmul
     result in its NATURAL layout (output position major, branch minor) —
     the reshape is free, so no minor-axis transpose is ever materialized.
-    This is the right form to feed time-scanned feedback loops (symsync):
-    on TPU the [..., M, N] transpose costs more than the matmul itself.
+    This is the right form to feed time-scanned feedback loops (symsync),
+    which read one time step of all branches at a time.
     """
     branches = jnp.asarray(branches)
     M, L = branches.shape
@@ -211,7 +206,7 @@ def multi_branch_conv(xa: jnp.ndarray, branches: jnp.ndarray) -> jnp.ndarray:
     out_dtype = result_dtype(xa.dtype, branches.dtype)
     if L <= _MM_MAX_TAPS and M <= 32:
         # banded-matmul form with branch-interleaved output columns
-        # (c = t·M + i), same MXU mapping as kernels/chain.py
+        # (c = t·M + i)
         xa = xa.astype(out_dtype)
         br = branches.astype(out_dtype)
         batch_shape = xa.shape[:-1]

@@ -6,9 +6,9 @@ polyphase bank: y_m = (h ⊛ x)(τ_m), with τ_m the exact u32 emission times
 (τ advances by step = round(2^24/rate) per output, 2^24 per input) and the
 fractional part of τ quantized to the nearest of 256 branch offsets.
 
-TPU-first factorization (round 4): (h ⊛ x) is bandlimited by h's own
+Block-parallel factorization: (h ⊛ x) is bandlimited by h's own
 cutoff, so its integer-grid samples z[i] = Σ_j x[i+j]·h(j·npfb-grid)
-(= polyphase branch 0 — one banded-MXU FIR) fully determine the continuous
+(= polyphase branch 0 — one banded-matmul FIR) fully determine the continuous
 signal; a POLYNOMIAL fractional interpolator (Farrow structure: K+1 small
 FIRs c_k ⊛ z combined as Σ_k μ^k·v_k) evaluates it at the exact fractional
 offsets μ_m = (phase_m & 0xffffff)/2^24. The Farrow coefficients are
@@ -33,7 +33,7 @@ import numpy as np
 _PREC = jax.lax.Precision.HIGHEST
 
 # Select-matmul column layout: "emission" (j-major, dot outputs in output
-# order — round 5) with automatic fallback to "window" for tiny periods.
+# order) with automatic fallback to "window" for tiny periods.
 _LAYOUT = "emission"
 
 # Farrow design: T taps, polynomial order K, fit band [0, _BAND] cycles/sample
@@ -100,8 +100,7 @@ def periodic_grid(step_nom: int, cap: int):
 
     ñ_m = (m//p̃)·q̃ + pat[m%p̃] with pat[j] = (j·q̃)//p̃ — periodic so the
     v-stream selection compiles to reshapes + ONE static 0/1 matmul
-    instead of a TPU gather (measured: a constant-index jnp.take of the
-    same rows ran at gather speed, slower than the u32 path it replaced).
+    instead of a gather.
     δ_m = p_m − 2n₀ − ñ_m is bounded over every entry phase by integer
     evaluation at the extreme fractional phases 0 and 2^24−1 (p_m is
     monotone in the phase). q̃ chosen from a small sweep minimizing the
@@ -140,9 +139,8 @@ def periodic_grid(step_nom: int, cap: int):
         D = d_hi - d_lo + 1
         # select-matmul MACs/input ≈ (band/q̃)·p̃·D, plus the window
         # ASSEMBLY traffic downstream which scales with Wt = T+D−1 per
-        # output and dominates the measured cost (round-4 job 86: ~90% of
-        # the pipeline) — weight D heavily so a deeper convergent with
-        # D=4 beats a shorter period with D=7
+        # output and dominates the cost — weight D heavily so a deeper
+        # convergent with D=4 beats a shorter period with D=7
         band = q2 + D
         cost = band * p2 * D / max(1, q2) + 200.0 * D
         if best is None or cost < best[0]:
@@ -196,13 +194,12 @@ def combined_select_matrices(step_nom: int, cap: int, band_hz: float,
 
     Two column layouts (cached per (step, cap, band, layout)):
 
-    * ``"emission"`` (production, round 5): columns ordered j-major —
+    * ``"emission"`` (production): columns ordered j-major —
       column (j, t) of a period selects the z2 sample at window position
       w(j, t) = 2t + s_j of output slot j (s_j the parity offset), so the
       chunk-dot outputs tile the [p2, Wh] output×window grid DIRECTLY in
       emission order: the final combine is one fused multiply-reduce over
-      the window axis, with NO per-w reassembly of dot outputs (the per-w
-      concat loop was ~90% of the round-4 pipeline — ROOFLINE round-4 §).
+      the window axis, with NO per-w reassembly of dot outputs.
       Within a parity stream each output's window positions are CONSECUTIVE
       rows (u(j, t) = u0_j + t), so chunks partition j-ranges with a
       128-row anchor window.
@@ -261,12 +258,10 @@ def combined_select_matrices(step_nom: int, cap: int, band_hz: float,
                 while jb < p2 and int(u0[jb]) + Wh - a_c <= CH:
                     jb += 1
                 # columns W-MAJOR within the chunk (col = t·cj + (j−ja)):
-                # the dot output then reshapes to [.., Wh, cj] with Wh in
-                # SUBLANES, so concat along j tiles [.., Wh, p2] densely
-                # and the final combine multiply-reduce runs with the
-                # window axis in sublanes and the period axis in lanes —
-                # a [.., p2·Wh, Wh]-minor layout pads Wh to 128 lanes and
-                # 18×'s the combine traffic (round-5 regression fix)
+                # the dot output then reshapes to [.., Wh, cj] with Wh
+                # leading, so concat along j tiles [.., Wh, p2] densely and
+                # the final combine multiply-reduce runs with the period
+                # axis minor
                 cj = jb - ja
                 M = np.zeros((CH, Wh * cj), np.float32)
                 for j in range(ja, jb):
@@ -367,10 +362,8 @@ def farrow_resample_values(
     max_n0 = max(0, (step_nom - 1) >> 24) + 2  # entry offset bound (+margin)
 
     # Everything below runs PLANAR (re/im as one flattened leading batch)
-    # and fully FLATTENED: a dot_general with >1 leading dim runs ~40×
-    # slower on this toolchain than the same FLOPs as a 2-D matmul
-    # (measured, /tmp/tpuq jobs 47/48/50 round 4) — so every conv and the
-    # combined matmul see [N, len] / [N·rows, Qh] shapes only.
+    # and fully FLATTENED: every conv and the combined matmul see
+    # [N, len] / [N·rows, Qh] shapes only (plain 2-D matmuls).
     batch_shape = xa.shape[:-1]
     is_c = jnp.issubdtype(xa.dtype, jnp.complexfloating)
     if is_c:
@@ -420,15 +413,15 @@ def farrow_resample_values(
 
     # ---- per-output taps: tiny (δ one-hot) @ CW, Horner in μ ----------
     if G["layout"] == "emission":
-        # TRANSPOSED Horner: [Wt, cap] with the output axis in LANES —
-        # the [cap, Wt]-minor orientation pads Wt≈11 to 128 lanes and the
-        # combine would inherit the padding (round-5 regression fix)
+        # TRANSPOSED Horner: [Wt, cap] with the output axis minor, the
+        # orientation the combine below consumes
         ohT = (
             jnp.arange(d_lo, d_hi + 1, dtype=jnp.int32)[:, None]
             == delta[None, :]
         ).astype(jnp.float32)  # [D, cap]
         A_T = jax.lax.dot_general(
-            jnp.asarray(G["CW"].T), ohT, (((1,), (0,)), ((), ()))
+            jnp.asarray(G["CW"].T), ohT, (((1,), (0,)), ((), ())),
+            precision=_PREC,
         )  # [(K+1)·Wt, cap]
         coefT = A_T[K * Wt : (K + 1) * Wt]
         for k in range(K - 1, -1, -1):
@@ -442,7 +435,8 @@ def farrow_resample_values(
         coef_pad = None
     else:
         A = jax.lax.dot_general(
-            oh, jnp.asarray(G["CW"]), (((1,), (0,)), ((), ()))
+            oh, jnp.asarray(G["CW"]), (((1,), (0,)), ((), ())),
+            precision=_PREC,
         )  # [cap, (K+1)·Wt]
         coef = A[:, K * Wt : (K + 1) * Wt]
         for k in range(K - 1, -1, -1):
@@ -452,11 +446,9 @@ def farrow_resample_values(
         coef_pad = jnp.pad(coef, [(0, rows * p2 - cap), (0, 0)])
 
     # ---- window select: chunked one-hot dots (K-independent) ----------
-    # 2-pass bf16 split computed ONCE at stream level (per-chunk hi/lo
-    # re-materialized 6.7× the dot cost — round-4 job 73): the rhs is
-    # exactly representable (0/1), so dot(hi) + dot(lo) with
-    # hi = bf16-rounded stream reconstructs the f32 selection to ~2^-17
-    # while running at bf16 MXU rate.
+    # 2-pass split computed ONCE at stream level: the rhs is exactly
+    # representable (0/1), so dot(hi) + dot(lo) with hi = bf16-rounded
+    # stream reconstructs the f32 selection (both dots at HIGHEST).
     def stream_hi_lo(z):
         zp = jnp.pad(z, [(0, 0), (s2, right)])
         zs = jax.lax.dynamic_slice_in_dim(zp, n0, need, axis=-1)
@@ -473,7 +465,8 @@ def farrow_resample_values(
             seg = flat[:, anchor : anchor + (rows + 1) * Qh]
             xc = seg.reshape((nb, rows + 1, Qh))[:, :rows, :CH]
             d_ = jax.lax.dot_general(
-                xc.reshape((-1, CH)), Mj, (((1,), (0,)), ((), ()))
+                xc.reshape((-1, CH)), Mj, (((1,), (0,)), ((), ())),
+                precision=_PREC,
             )
             acc = d_ if acc is None else acc + d_
         return acc  # [nb·rows, ncols]
@@ -481,10 +474,10 @@ def farrow_resample_values(
     if G["layout"] == "emission":
         # ---- y: dot outputs land in EMISSION ORDER ---------------------
         # per parity the chunk outputs tile the [Wh, p2] window×output grid
-        # w-major (window axis in SUBLANES, period axis in LANES — dense);
+        # w-major (window axis leading, period axis minor — dense);
         # the combine is one fused multiply-reduce against the parity's
         # window-coefficient grid (coef[m, 2t + s_j]) — no per-w
-        # reassembly (round-4's dominant cost, ~90% of the pipeline).
+        # reassembly.
         y = None
         for parity, z in ((0, z_e), (1, z_o)):
             zhi, zlo = stream_hi_lo(z)
@@ -494,8 +487,7 @@ def farrow_resample_values(
             # multiply-reduce PER CHUNK (before any concat): concatenating
             # the [nb·rows, Wh, p2] grid first materializes ~145 MB per
             # parity of dot outputs twice over — per-chunk reduction feeds
-            # only the [nb, rows, cj] results into the concat (measured
-            # 2.75 -> ~1.5 ms for the dots+combine stage at rate 0.96796)
+            # only the [nb, rows, cj] results into the concat
             terms = []
             for (a_c, M, (ja, jb)) in G["echunks"][parity]:
                 O_c = chunk_dot(zhi, zlo, a_c, M).reshape(
@@ -509,10 +501,8 @@ def farrow_resample_values(
         y = y.reshape((nb, rows * p2))[:, :cap]
     else:
         # ---- legacy: window-order columns + per-w reassembly -----------
-        # (A/B'd round 4: stacking all windows into one [nb, Wt, cap]
-        # tensor + a single reduce measured ~20% SLOWER than this
-        # accumulate loop, and einsum "bwm,mw->bm" hits the wide-batch
-        # dot pathology — job 80.)
+        # (an accumulate loop over windows rather than one stacked
+        # [nb, Wt, cap] tensor and a single reduce)
         Oc = {}
         for parity, z in ((0, z_e), (1, z_o)):
             zhi, zlo = stream_hi_lo(z)
@@ -569,7 +559,7 @@ def farrow_resample_values(
     # n_m ≤ entry_n0 + ((m·step)>>24) + 1 with entry_n0 ≤ max_n0, so the
     # first slot index that can reach the zone is bounded host-side from
     # the nominal step. (Anchoring to out_capacity zeroed valid tail
-    # emissions whenever capacity exceeded the emission count — ADVICE r4.)
+    # emissions whenever capacity exceeded the emission count.)
     tail_zone = n_m >= (n - lookahead - max_n0)
     first = ((n - lookahead - 2 * max_n0 - 1) << 24) // step_nom - 4
     sl = max(0, min(cap, first))

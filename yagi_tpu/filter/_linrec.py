@@ -9,15 +9,14 @@ companion matrix M, and the affine maps (A, b) compose associatively:
     (A₂, b₂) ∘ (A₁, b₁) = (A₂A₁, A₂b₁ + b₂)
 
 `jax.lax.associative_scan` evaluates all prefixes in O(log T) depth with
-full VPU vectorization — orders of magnitude faster on TPU than the
-sequential scan, which dispatches T tiny steps. The numerator (FIR) part is
+full vectorization, instead of a sequential scan of T tiny steps. The numerator (FIR) part is
 applied afterwards as m+1 shifted adds on the v0 sequence.
 
 Outputs match the sequential scan to fp32 tolerance (exact same recurrence,
 different summation order); the sequential path remains the default for
 bit-compatibility and is the oracle in tests/test_iir_parallel.py.
 
-Numerical guard (advisor round 2): the general-order path forms cumulative
+Numerical guard: the general-order path forms cumulative
 companion-matrix products Mⁿ. For NORMAL/near-normal M with pole radius
 r < 1 these stay bounded, but TF-form filters of order > 2 can have highly
 non-normal companion matrices whose transients ‖Mⁿ‖ grow to ~κ·rⁿ with large
@@ -36,13 +35,15 @@ import jax.numpy as jnp
 
 __all__ = ["allpole_parallel"]
 
+_PREC = jax.lax.Precision.HIGHEST  # f32 products, never TF32 on the GPU
+
 
 def _combine(left, right):
     """Compose affine recurrence elements (left happens first in time)."""
     a1, b1 = left
     a2, b2 = right
-    a = jnp.einsum("t...ij,t...jk->t...ik", a2, a1)
-    b = jnp.einsum("t...ij,t...j->t...i", a2, b1) + b2
+    a = jnp.einsum("t...ij,t...jk->t...ik", a2, a1, precision=_PREC)
+    b = jnp.einsum("t...ij,t...j->t...i", a2, b1, precision=_PREC) + b2
     return a, b
 
 
@@ -88,7 +89,8 @@ def allpole_parallel(a_tail, v_init, x):
     )
     a_cum, b_cum = jax.lax.associative_scan(_combine, (a_el, b_el), axis=0)
     # s[n] = A_cum[n]·s₀ + b_cum[n];  s₀ = v_init (already newest-first)
-    s = jnp.einsum("tij,...j->t...i", a_cum, v_init.astype(dt)) + b_cum
+    s = jnp.einsum("tij,...j->t...i", a_cum, v_init.astype(dt),
+                   precision=_PREC) + b_cum
     v0 = jnp.moveaxis(s[..., 0], 0, -1)  # [..., T]
     v_final = s[-1]  # [..., m] newest first
     return v0, v_final

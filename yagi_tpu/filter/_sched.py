@@ -1,4 +1,4 @@
-"""Static-schedule polyphase resampling as one banded MXU matmul.
+"""Static-schedule polyphase resampling as one banded matmul.
 
 The rational resampler's emission schedule is static (rresamp.rs:144-160:
 output j of a P-block consumes input floor(j·Q/P) through branch (j·Q) mod
@@ -7,13 +7,11 @@ form whenever the reduced numerator P divides 2^24 (step·P = Q·2^24 exactly,
 so the phase accumulator returns to its entry value every Q inputs —
 resamp.rs:103,141-154).
 
-Round-2 measured the gather+einsum formulation of that schedule at 0.019
-Gsps on TPU (scalar-unit-bound dynamic frame gather, kernels/ROOFLINE.md).
 This module lifts any static (src, branch) periodic schedule into the banded
-matmul mapping of filter/_conv.py: s periods of outputs per 128-ish-lane
-row, window rows lane-concatenated, taps placed in a [K, W] band matrix G
-whose column j' = t·P + j holds branch[j]'s taps at offset t·Q + src[j] —
-one MXU dot per row instead of P·L scalar gathers.
+matmul mapping of filter/_conv.py, in place of a dynamic frame gather: s
+periods of outputs per ~128-sample row, window rows concatenated, taps
+placed in a [K, W] band matrix G whose column j' = t·P + j holds branch[j]'s
+taps at offset t·Q + src[j] — one dot per row instead of P·L gathers.
 """
 
 from __future__ import annotations
@@ -55,7 +53,7 @@ def sched_banded_matmul(
 
     y[..., t·P + j] = Σ_l xa[..., t·Q+src_off[j]+l] · branches[br_idx[j], L−1−l]
     — identical math to the reference's per-emission dotprod, evaluated as
-    one banded MXU matmul per output row.
+    one banded matmul per output row.
     """
     src_off = np.asarray(src_off, dtype=np.int64)
     br_idx = np.asarray(br_idx, dtype=np.int64)

@@ -2,7 +2,7 @@
 
 Behavioral spec: /root/reference/src/filter/fftfilt.rs. Fixed block size n,
 2n-point FFT, Y = X·H, IFFT, add saved tail, save new tail
-(fftfilt.rs:103-138). This is the natural TPU block filter — the whole
+(fftfilt.rs:103-138). This is the natural block filter — the whole
 execute is three fused XLA ops; multiple blocks batch into ONE batched FFT.
 """
 

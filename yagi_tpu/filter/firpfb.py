@@ -151,7 +151,7 @@ class FirPfbFilter:
         return y, self.replace(window=xa[..., xa.shape[-1] - self.sub_len :])
 
     def execute_all(self, x) -> tuple[jnp.ndarray, "FirPfbFilter"]:
-        """TPU extension: all M branch outputs for a whole block at once.
+        """Extension: all M branch outputs for a whole block at once.
 
         Returns ([..., M, N], updated state); this is the building block for
         interpolation and the channelizer (one XLA conv with M out-channels).

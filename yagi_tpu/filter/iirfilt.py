@@ -44,7 +44,7 @@ class IirFilter:
     v: jnp.ndarray = struct.field()
     # log-depth block path (associative scan over the linear recurrence,
     # filter/_linrec.py) — fp32-tolerance-equal to the sequential scan,
-    # orders of magnitude faster on TPU for long blocks
+    # log-depth instead of one scan step per sample
     parallel: bool = struct.static_field(default=False)
 
     # ------------------------------------------------------------------ ctors
@@ -224,8 +224,8 @@ class IirFilter:
 
         Same recurrence, different summation order: outputs match the
         sequential scan to fp32 tolerance (tests/test_iir_parallel.py), and
-        the state carry keeps block-split invariance. Use for long blocks on
-        TPU; keep the default sequential path when bit-compatibility with
+        the state carry keeps block-split invariance. Use for long blocks;
+        keep the default sequential path when bit-compatibility with
         per-sample execution matters.
         """
         return self.replace(parallel=True)

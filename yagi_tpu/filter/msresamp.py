@@ -46,8 +46,8 @@ class MsResamp:
                dtype=jnp.complex64, arbitrary_interp: str = "pfb") -> "MsResamp":
         """Rate decomposition per msresamp.rs:28-80.
 
-        ``arbitrary_interp="farrow"`` puts the arbitrary stage on the TPU production
-        fast path (filter/_farrow_resamp.py): exact u32 schedule, values
+        ``arbitrary_interp="farrow"`` puts the arbitrary stage on the
+        gather-free fast path (filter/_farrow_resamp.py): exact u32 schedule, values
         within the reference's 1/256 branch-quantization floor.
         """
         if rate <= 0.0:

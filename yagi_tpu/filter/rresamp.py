@@ -169,8 +169,7 @@ class Rresamp:
         src_off = (j * self.q) // P
         branch = (j * self.q) % P
         if sched_matmul_ok(P, self.q, L):
-            # static schedule → banded MXU matmul (the round-2 gather+einsum
-            # form measured 0.019 Gsps on TPU, kernels/ROOFLINE.md)
+            # static schedule → banded matmul instead of a frame gather
             y = sched_banded_matmul(xa, self.branches, src_off, branch,
                                     self.q, n_blk)
         else:  # heavy decimation: band matrix would be mostly zeros

@@ -8,7 +8,7 @@ sequence; the output ``rxy`` is the normalized bit-agreement in [-1, 1]
 signs enter the correlation, the detector is immune to amplitude fading and
 costs one ±1 dot product per lag.
 
-TPU-first: a block of samples is processed as one XLA convolution of the
+Block-parallel: a block of samples is processed as one XLA convolution of the
 sign stream with the ±1 template — [..., N] in, [..., N] rxy out — with an
 explicit carry of the last n-1 signs so block boundaries are seamless
 (split-invariant, like every streaming op in this framework).

@@ -6,7 +6,7 @@ normalized cross-correlation against a known complex template crosses the
 threshold, report a detection with timing offset ``tau`` (sub-sample),
 carrier frequency offset ``dphi`` and channel gain ``gamma``.
 
-TPU-first: the streaming interface wraps the same batched FFT
+Block-parallel: the streaming interface wraps the same batched FFT
 correlation-surface engine as :class:`~yagi_tpu.framing.qdetector.QDetector`
 (one [n_dphi, Nfft] product per block); the only sequential state is the
 (L-1)-sample overlap tail carried between blocks so a template straddling a

@@ -7,10 +7,10 @@ format (protected 8-byte header + 64-byte payload, QPSK) with every data
 symbol spread by a binary PN chip sequence, giving ~10*log10(sf) dB of
 processing gain so frames decode well below 0 dB SNR.
 
-TPU-first: spreading is one outer product (symbols [S] x chips [sf] ->
+Block-parallel: spreading is one outer product (symbols [S] x chips [sf] ->
 [S, sf] reshaped to a chip stream); despreading is one matmul of the
 chip-rate matrix against the conjugate PN vector — both map straight onto
-the MXU for batched links. Detection/carrier recovery reuse the QDetector
+one matmul for batched links. Detection/carrier recovery reuse the QDetector
 FFT correlation bank over the chip-shaped preamble.
 """
 

@@ -15,7 +15,7 @@ Wire format (self-consistent to this framework, as with frame64):
 and QPSK-modulated; payload = packetizer(crc,fec0,fec1) + chosen modem;
 root-Nyquist pulse shaping at k=2 samples/symbol.
 
-TPU-first: same block-math receiver as FrameSync64 — QDetector FFT
+Block-parallel: same block-math receiver as FrameSync64 — QDetector FFT
 correlation bank, closed-form carrier/timing correction, one matched
 filter convolution, strided symbol gather; plus a pilot-free LSQ phase fit
 over the known preamble.

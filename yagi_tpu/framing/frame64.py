@@ -14,7 +14,7 @@ layout is not a published interop standard); the *capabilities* match:
 detection from noise at unknown delay/CFO/phase/gain, soft-decision FEC
 decode, and per-frame stats (EVM, RSSI, CFO estimate).
 
-TPU-first: detection is the QDetector FFT correlation bank; carrier and
+Block-parallel: detection is the QDetector FFT correlation bank; carrier and
 timing correction are closed-form vector ops over the whole burst (no
 per-sample feedback loops — a burst is a block, so block math wins);
 matched filtering is one XLA convolution.

@@ -9,7 +9,7 @@ protected payload; the synchronizer detects the burst, recovers timing and
 carrier offset, and decodes non-coherently (FSK tone energies are
 insensitive to carrier phase and channel gain).
 
-TPU-first: modulation is the block Fskmod (one u32 phase cumsum);
+Block-parallel: modulation is the block Fskmod (one u32 phase cumsum);
 demodulation is the block Fskdem (one batched K-point FFT over all symbol
 frames + argmax); detection reuses the QDetector FFT correlation bank over
 the deterministic FSK preamble waveform.

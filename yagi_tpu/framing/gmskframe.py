@@ -9,7 +9,7 @@ bandwidth-time product bt; the synchronizer detects the burst at unknown
 delay/carrier/gain, recovers timing and CFO, and decodes header and
 payload with soft decisions.
 
-TPU-first: the GMSK preamble waveform is a deterministic complex template,
+Block-parallel: the GMSK preamble waveform is a deterministic complex template,
 so detection reuses the QDetector FFT correlation bank; demodulation is
 the block GmskDem (discriminator + receive matched filter — one conjugate
 product + one convolution); the frequency discriminator is inherently

@@ -7,7 +7,7 @@ noise, and modulated symbol streams — each placed at its own center
 frequency with its own gain, summed into one output stream. Used to build
 test spectra for channelizer / receiver validation.
 
-TPU-first: every source produces a block at baseband (SymStreamR already
+Block-parallel: every source produces a block at baseband (SymStreamR already
 batches; noise is one filtered jax.random block; a tone is one vectorized
 cexp), and the frequency shift is a vectorized mixer with an exact
 per-source phase carry, so repeated ``write_samples`` calls are

@@ -6,7 +6,7 @@ liquid-dsp's qdetector_cccf: given a known template sequence, find it in a
 received buffer and estimate timing offset (to sub-sample resolution),
 carrier frequency offset, carrier phase, and channel gain.
 
-TPU-first: detection is one batched computation — FFT cross-correlation of
+Block-parallel: detection is one batched computation — FFT cross-correlation of
 the buffer against a *bank of carrier-offset hypotheses* (the template
 pre-rotated by each trial dphi), evaluated as a single [n_dphi, Nfft]
 frequency-domain product and inverse FFT. Peak search is an argmax over

@@ -8,7 +8,7 @@ detect the preamble in a raw sample stream, recover timing (sub-sample),
 carrier frequency/phase and gain, and emit synchronized symbols at 1
 sample/symbol from the preamble start onward.
 
-TPU-first: detection is the QDetector FFT correlation bank; the corrections
+Block-parallel: detection is the QDetector FFT correlation bank; the corrections
 are closed-form whole-buffer vector ops (rotate, FFT fractional shift, one
 matched-filter convolution, strided gather) — burst = block, so block math
 replaces liquid's per-sample mixer/symsync feedback loops.

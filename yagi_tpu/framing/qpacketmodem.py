@@ -7,7 +7,7 @@ packetizer (CRC + two FEC levels + interleaving) and mapped to modem
 symbols; the receiver demodulates (hard or soft) and runs the inverse
 chain, reporting CRC validity.
 
-TPU-first: modulation/demodulation are the batched Modem ops (one gather /
+Block-parallel: modulation/demodulation are the batched Modem ops (one gather /
 one argmin over the block); soft decoding feeds the Viterbi lax.scan.
 The packet-rate FEC framing stays host-side numpy, as in the fec module.
 """

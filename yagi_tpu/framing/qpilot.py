@@ -8,7 +8,7 @@ payload symbol stream; the synchronizer estimates channel gain, carrier
 frequency offset, and carrier phase from the received pilots and corrects
 the payload.
 
-TPU-first: the CFO estimate is one zero-padded FFT over the pilot
+Block-parallel: the CFO estimate is one zero-padded FFT over the pilot
 correlation sequence (argmax + quadratic interpolation for sub-bin
 resolution); gain/phase are weighted reductions; the payload correction is
 a single vector rotate. Everything is batched block math — no loops.

@@ -3,7 +3,7 @@
 Behavioral specs:
 * SymStream — /root/reference/src/framing/symstream.rs: random symbols from
   an m-sequence → Modem.modulate → ×gain → 1:k interpolation
-  (symstream.rs:104-121). The TPU form generates a whole block of symbols at
+  (symstream.rs:104-121). The block form generates a whole block of symbols at
   once (LFSR host-side, exact) and interpolates in one batched call; a carry
   buffer preserves arbitrary block lengths.
 * SymStreamR — symstreamr.rs: SymStream at 2 samples/symbol followed by an

@@ -1,11 +1,29 @@
-"""Pallas TPU kernels for hot paths.
+"""Pallas kernels (Triton route) for the hot paths, and their routing rule.
 
-Round-1 status: the XLA formulations (grouped convs, batched FFTs) already
-sit in the HBM-bound regime on v5e (see kernels/ROOFLINE.md); the win from
-Pallas is FUSION — one HBM pass over the stream instead of one per stage.
-This package establishes the pattern with a fused mixer kernel; the fused
-FIR+resample+mix chain kernel is the round-2 target.
+Each kernel has a plain XLA formulation beside it; the objects that use a
+kernel take ``backend="auto" | "xla" | "triton"``. A kernel runs in Pallas
+interpret mode only when the caller passes ``interpret=True``.
 """
 
-from .mix import pallas_mix_down  # noqa: F401
-from .chain import chain_matrices, fused_chain_apply  # noqa: F401
+import jax
+
+from ..errors import ConfigError
+
+BACKENDS = ("auto", "xla", "triton")
+
+
+def use_kernel(backend: str, supported: bool) -> bool:
+    """Whether an object takes its Triton kernel.
+
+    ``"xla"`` never does; ``"triton"`` does whenever the shape is
+    ``supported``; ``"auto"`` does when the shape is supported and JAX's
+    default backend is a GPU.
+    """
+    if backend not in BACKENDS:
+        raise ConfigError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if backend == "xla" or not supported:
+        return False
+    return backend == "triton" or jax.default_backend() == "gpu"
+
+
+from .chain import chain_taps, fused_chain_apply  # noqa: E402,F401

@@ -1,14 +1,12 @@
-"""Fused Pallas RX-chain kernel: FIR → P× polyphase interp → NCO mix-down.
+"""Fused receive-chain kernel: FIR → P× polyphase interpolator → NCO mix-down.
 
-One VMEM pass over the input stream replaces the three-stage XLA chain
+One pass over the input stream replaces the three-stage XLA chain
 (BASELINE config[0]; reference semantics: firfilt.rs execute_block →
 resamp.rs:141-154 u32-phase polyphase emission → osc.rs:179 block mix).
-
-Why fused: every stage is a low-arithmetic-intensity streaming op, so the
-chain is HBM-bound; on the production TPU runtime the XLA formulation's
-dynamic frame gather (resamp.rs branch select) additionally falls off the
-vector units. This kernel streams x through VMEM exactly once and emits the
-mixed 2×-rate stream, with all filter math on the MXU:
+Every stage is a streaming operation of low arithmetic intensity, so the
+XLA chain spends its time writing the FIR and resampler outputs to device
+memory and reading them back; this kernel reads the input once and writes
+the mixed P×-rate stream once.
 
 * For an integer rate P (P | 2^24, P | npfb), the resampler's u32 phase
   schedule is static and periodic: output m consumes input n=m//P through
@@ -16,17 +14,15 @@ mixed 2×-rate stream, with all filter math on the MXU:
   specialization of resamp.rs:141-154 (step = 2^24/P).
 * FIR ⊛ branch filters collapse into P combined filters g_δ = h_fir ⊛ h_branchδ
   (length 64+14-1 = 77 for the flagship), computed in f64 on the host.
-* Per 128-lane input row b, the P·128 chain outputs are ONE MXU matmul:
-  Z[b] = [X[b−1] | X[b]] @ [G_prev; G_cur] — a K=256 dot against the stacked
-  banded [256, 128P] matrix whose columns are ordered so Z is already the
-  interleaved output stream.
-* The NCO phase ramp θ_m = θ0 + m·dθ is synthesized in-register in exact
-  wrapping uint32 (osc.rs:86-88) — bit-identical to Osc.mix_block_down's
-  "exact" mode (u32→f32 via 16-bit halves rounds identically to astype).
+* Each program owns one channel and one power-of-two tile of input samples
+  and evaluates the P combined filters as a direct fp32 dot over the K taps
+  (K·P multiply-adds per input sample and plane). It loads its own left
+  halo: from ``x`` for every tile but the first, from the carried history
+  for the first.
+* The NCO phase ramp θ_m = θ0 + m·dθ is computed in wrapping uint32
+  (osc.rs:86-88), exactly as ``Osc.mix_block_down``'s "exact" mode.
 
-Complex I/O is planar (re/im planes): Mosaic has no complex dtype, and the
-production runtime requires real dtypes at every jit boundary anyway (see
-yagi_tpu/utils/planar.py).
+Complex I/O is planar (re/im planes): Pallas kernels take real dtypes.
 """
 
 from __future__ import annotations
@@ -37,25 +33,27 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-__all__ = ["chain_matrices", "fused_chain_apply"]
+__all__ = ["HIST", "chain_taps", "chain_tile", "chain_reference",
+           "fused_chain_apply"]
 
-_LANE = 128
+HIST = 128  # input history carried between blocks; bounds the filter length
+# programs of ≤512 input samples and 4 warps: the fastest of tiles
+# 256-4096 × 2-8 warps on the H100 (C=16, 131,072-sample blocks)
+_MAX_TILE = 512
+_NUM_WARPS = 4
+_TWO_PI_U32 = np.float32(2.0 * np.pi / 4294967296.0)
 
 
-def chain_matrices(h, scale, branches, p: int) -> np.ndarray:
-    """Banded chain matrices G [2, 128, 128·P] from FIR taps + PFB branches.
+def chain_taps(h, scale, branches, p: int) -> np.ndarray:
+    """Combined filters, TAP-MAJOR ``[K, P]``: ``g[k, δ] = g_δ[k]``.
 
-    ``h``: FIR taps (h[0] multiplies the newest sample), ``scale``: FIR output
-    scale, ``branches``: [npfb, L] polyphase bank in convolution order
-    (branch row b, tap j multiplies y0[n-j], cf. filter/resamp.py).
-
-    Output column u = P·t + δ holds the δ-th polyphase stream's tap for
-    output sample index m = P·(128b + t) + δ:
-      G[1][j, u] = g_δ[t - j]        (current input row)
-      G[0][j, u] = g_δ[128 + t - j]  (previous input row)
-    where g_δ = (scale·h) ⊛ branches[δ·npfb/P], computed in float64.
+    ``h``: FIR taps (h[0] multiplies the newest sample), ``scale``: FIR
+    output scale, ``branches``: [npfb, L] polyphase bank in convolution
+    order (branch row b, tap j multiplies y0[n-j], cf. filter/resamp.py).
+    g_δ = (scale·h) ⊛ branches[δ·npfb/P], computed in float64; output
+    sample m = P·n + δ is Σ_k g_δ[k]·x[n-k].
     """
     h = np.asarray(h, dtype=np.float64) * float(np.asarray(scale).real)
     branches = np.asarray(branches, dtype=np.float64)
@@ -65,183 +63,147 @@ def chain_matrices(h, scale, branches, p: int) -> np.ndarray:
     if (1 << 24) % p:
         raise ValueError("P must divide 2^24 for an exact static phase schedule")
     K = len(h) + L - 1
-    if K > _LANE:
-        raise ValueError(f"combined filter length {K} exceeds one row ({_LANE})")
+    if K > HIST:
+        raise ValueError(f"combined filter length {K} exceeds the history ({HIST})")
     g = np.stack([np.convolve(h, branches[d * (npfb // p)]) for d in range(p)])
+    return np.ascontiguousarray(g.T).astype(np.float32)
 
-    j = np.arange(_LANE)[:, None]  # source index within a row
-    t = np.arange(_LANE)[None, :]  # output "input-sample" index within a row
-    G = np.zeros((2, _LANE, _LANE * p), dtype=np.float64)
-    for d in range(p):
-        k_cur = t - j
-        k_prev = _LANE + t - j
-        cur = np.where((k_cur >= 0) & (k_cur < K), g[d][np.clip(k_cur, 0, K - 1)], 0.0)
-        prev = np.where(
-            (k_prev >= 0) & (k_prev < K), g[d][np.clip(k_prev, 0, K - 1)], 0.0
+
+def chain_tile(t: int, k: int) -> int:
+    """Input samples per program: the largest power of two ≤ 512 that
+    divides the block length ``t`` and covers the filter length ``k`` (a
+    tile's halo then lies inside the previous tile)."""
+    tile = _MAX_TILE
+    while tile >= k and t % tile:
+        tile //= 2
+    if t <= 0 or tile < k:
+        raise ValueError(
+            f"block length {t} has no power-of-two tile of at least {k} samples"
         )
-        G[1, :, d::p] = cur
-        G[0, :, d::p] = prev
-    return G.astype(np.float32)
+    return tile
 
 
-def _chain_kernel(p: int, r: int, precision, scal_ref, xr_ref, xi_ref, g_ref,
-                  hr_ref, hi_ref, yr_ref, yi_ref):
-    """One grid step: R input rows of 128 samples → R output rows of 128·P.
+def _mix_down(zr, zi, m, theta0, dtheta):
+    """(zr + j·zi)·exp(-j·θ_m) with θ_m = θ0 + m·dθ in wrapping uint32."""
+    theta = theta0 + m.astype(jnp.uint32) * dtheta
+    t = theta.astype(jnp.float32) * _TWO_PI_U32
+    c = jnp.cos(t)
+    s = jnp.sin(t)
+    return zr * c + zi * s, zi * c - zr * s
 
-    The one-row left halo arrives as a per-tile input (precomputed strided
-    row extract in the XLA wrapper) rather than a cross-step VMEM scratch
-    carry: scratch-carry halo patterns crash the Mosaic lowering on the
-    production toolchain (lower_to_llo.cc "Check failed: d >> 32 == 0"),
-    and the halo rows are only 1/R of the stream (~6% extra HBM traffic).
+
+def chain_reference(xr, xi, g, hist_r, hist_i, theta0, dtheta):
+    """Plain XLA formulation of :func:`fused_chain_apply` (same math).
+
+    One VALID correlation per plane over ``[history | block]`` at HIGHEST
+    precision, interleaved to the P×-rate stream, then the exact NCO ramp.
+    Returns ``(yr, yi)`` [C, T·P].
     """
-    i = pl.program_id(0)
-    outw = _LANE * p
+    K, p = g.shape
+    C, T = xr.shape
+    rhs = jnp.transpose(g[::-1], (1, 0))[:, None, :]  # [P, 1, K] correlation
 
-    xr = xr_ref[:]  # [C, R, 128]
-    xi = xi_ref[:]
-    h_r = hr_ref[0].reshape(xr.shape[0], 1, _LANE)  # [1, C, 128] → [C, 1, 128]
-    h_i = hi_ref[0].reshape(xr.shape[0], 1, _LANE)
-    prev_r = jnp.concatenate([h_r, xr[:, : r - 1]], axis=1)
-    prev_i = jnp.concatenate([h_i, xi[:, : r - 1]], axis=1)
+    def filt(x, hist):
+        xa = jnp.concatenate([hist, x], axis=-1)[:, None, HIST - K + 1:]
+        z = jax.lax.conv_general_dilated(
+            xa, rhs, window_strides=(1,), padding="VALID",
+            precision=jax.lax.Precision.HIGHEST,
+        )  # [C, P, T]
+        return jnp.transpose(z, (0, 2, 1)).reshape(C, T * p)
 
-    # One K=256 dot per plane over the lane-concatenated [prev|cur] rows
-    # against the stacked [G_prev; G_cur] band matrix — same math as the
-    # two K=128 dots Z = prev@G0 + cur@G1, but one MXU pass instead of two
-    # plus a VPU add (measured ~1.8× on-chip, KERNEL_VARIANTS.json).
-    dn = (((2,), (0,)), ((), ()))
-    gm = g_ref[:]  # [256, 128P] stacked band matrix
-    fr = jnp.concatenate([prev_r, xr], axis=2)  # [C, R, 256]
-    fi = jnp.concatenate([prev_i, xi], axis=2)
-    if precision == "bf16x3":
-        # 3-pass bf16 split (a≈a_hi+a_lo): a·b ≈ ah·bh + ah·bl + al·bh —
-        # half the MXU passes of fp32-HIGHEST (6) at ~2^-21 relative error
-        # (documented tolerance mode; drops the al·bl term, ~2^-31)
-        gh = gm.astype(jnp.bfloat16)
-        gl = (gm - gh.astype(jnp.float32)).astype(jnp.bfloat16)
+    m = jnp.arange(T * p, dtype=jnp.uint32)
+    return _mix_down(filt(xr, hist_r), filt(xi, hist_i), m,
+                     jnp.asarray(theta0, jnp.uint32),
+                     jnp.asarray(dtheta, jnp.uint32))
 
-        def dot3(f):
-            fh = f.astype(jnp.bfloat16)
-            fl = (f - fh.astype(jnp.float32)).astype(jnp.bfloat16)
-            z = jax.lax.dot_general(
-                fh, gh, dn, preferred_element_type=jnp.float32
+
+def _chain_kernel(scal_ref, g_ref, xr_ref, xi_ref, hr_ref, hi_ref,
+                  yr_ref, yi_ref, *, p: int, k: int, tile: int):
+    """One program: channel ``program_id(1)``, input tile ``program_id(0)``.
+
+    ``y[c, n, δ]`` for the tile's n: P one-dimensional accumulators per
+    plane, one window load per tap and plane shared by the P filters.
+    """
+    t = pl.program_id(0)
+    c = pl.program_id(1)
+    n0 = t * tile
+    iota = jnp.arange(tile, dtype=jnp.int32)
+
+    def filt(window):
+        def tap(j, acc):
+            wr, wi = window(j)
+            return tuple(
+                (ar + wr * g_ref[j, d], ai + wi * g_ref[j, d])
+                for d, (ar, ai) in enumerate(acc)
             )
-            z = z + jax.lax.dot_general(
-                fh, gl, dn, preferred_element_type=jnp.float32
-            )
-            z = z + jax.lax.dot_general(
-                fl, gh, dn, preferred_element_type=jnp.float32
-            )
-            return z
 
-        zr = dot3(fr)
-        zi = dot3(fi)
-    else:
-        zr = jax.lax.dot_general(
-            fr, gm, dn, preferred_element_type=jnp.float32, precision=precision
-        )
-        zi = jax.lax.dot_general(
-            fi, gm, dn, preferred_element_type=jnp.float32, precision=precision
-        )
+        zero = jnp.zeros((tile,), jnp.float32)
+        return jax.lax.fori_loop(0, k, tap, ((zero, zero),) * p)
 
-    # exact u32 NCO ramp over this tile's global output indices (osc.rs:86-88).
-    # All phase arithmetic runs in int32: HLO integer ops are two's-complement
-    # wraparound, so the bit pattern equals the u32 accumulator exactly, and
-    # Mosaic's u32 paths (which crash its lowering) are never touched.
-    theta0 = scal_ref[0]
-    dtheta = scal_ref[1]
-    rows = jax.lax.broadcasted_iota(jnp.int32, (r, outw), 0)
-    cols = jax.lax.broadcasted_iota(jnp.int32, (r, outw), 1)
-    idx = (i * jnp.int32(r) + rows) * jnp.int32(outw) + cols
-    theta = theta0 + idx * dtheta
-    # u32→f32 via 16-bit halves (rounds identically to a direct u32→f32 cast:
-    # hi·65536 is exact in f32, one final round when adding lo)
-    hi = jax.lax.shift_right_logical(theta, 16).astype(jnp.float32)
-    lo = (theta & jnp.int32(0xFFFF)).astype(jnp.float32)
-    t = (hi * jnp.float32(65536.0) + lo) * jnp.float32(2.0 * np.pi / 4294967296.0)
-    c = jnp.cos(t)[None]
-    s = jnp.sin(t)[None]
-    # (zr + j·zi)·(c − j·s)
-    yr_ref[:] = zr * c + zi * s
-    yi_ref[:] = zi * c - zr * s
+    def body_window(j):
+        # every tile but the first: x[n0 - j : n0 - j + tile], in bounds
+        # because tile ≥ k > j
+        return (xr_ref[c, pl.ds(n0 - j, tile)], xi_ref[c, pl.ds(n0 - j, tile)])
+
+    def head_window(j):
+        # first tile: samples before the block come from the history
+        idx = iota - j
+        inx = idx >= 0
+        xi_ = jnp.maximum(idx, 0)
+        hi_ = jnp.minimum(idx + HIST, HIST - 1)
+        wr = (plgpu.load(xr_ref.at[c, xi_], mask=inx, other=0.0)
+              + plgpu.load(hr_ref.at[c, hi_], mask=~inx, other=0.0))
+        wi = (plgpu.load(xi_ref.at[c, xi_], mask=inx, other=0.0)
+              + plgpu.load(hi_ref.at[c, hi_], mask=~inx, other=0.0))
+        return wr, wi
+
+    def emit(window):
+        for d, (zr, zi) in enumerate(filt(window)):
+            yr, yi = _mix_down(zr, zi, (n0 + iota) * p + d, scal_ref[0],
+                               scal_ref[1])
+            yr_ref[c, pl.ds(n0, tile), d] = yr
+            yi_ref[c, pl.ds(n0, tile), d] = yi
+
+    @pl.when(t == 0)
+    def _():
+        emit(head_window)
+
+    @pl.when(t > 0)
+    def _():
+        emit(body_window)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("p", "r", "precision", "interpret")
-)
-def fused_chain_apply(
-    xr,
-    xi,
-    g,
-    hist_r,
-    hist_i,
-    theta0,
-    dtheta,
-    *,
-    p: int,
-    r: int = 16,
-    precision=jax.lax.Precision.HIGHEST,
-    interpret: bool = False,
-):
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def fused_chain_apply(xr, xi, g, hist_r, hist_i, theta0, dtheta, *,
+                      interpret: bool = False):
     """Run the fused chain over planar blocks.
 
-    xr/xi: [C, T] input planes (T a multiple of 128·r); g: [2, 128, 128·P]
-    from :func:`chain_matrices`; hist_r/i: [C, 128] trailing input history of
-    the previous block (zeros at stream start); theta0/dtheta: u32 NCO state.
+    xr/xi: [C, T] input planes (T a multiple of a power-of-two tile of at
+    least K samples, :func:`chain_tile`); g: [K, P] from
+    :func:`chain_taps`; hist_r/i: [C, 128] trailing input history of the
+    previous block (zeros at stream start); theta0/dtheta: u32 NCO state.
 
     Returns (yr, yi) [C, T·P]. State advance (caller): hist' = x[:, -128:],
     theta' = theta0 + u32(T·P)·dtheta; the resampler phase is 0 before and
     after every block by construction.
     """
+    K, p = g.shape
     C, T = xr.shape
-    if T % (_LANE * r):
-        raise ValueError(f"block length {T} must be a multiple of {_LANE * r}")
-    nb = T // _LANE
-    grid = nb // r
-    outw = _LANE * p
-
-    xr3 = xr.reshape(C, nb, _LANE)
-    xi3 = xi.reshape(C, nb, _LANE)
-    # per-tile halo rows [grid, C, 128]: tile i's left-neighbor row (stream
-    # history for i=0); tile-major so each block is a full (C, 128) plane
-    hr = jnp.concatenate(
-        [hist_r[None], xr3[:, r - 1 :: r][:, :-1].transpose(1, 0, 2)], axis=0
-    )
-    hi = jnp.concatenate(
-        [hist_i[None], xi3[:, r - 1 :: r][:, :-1].transpose(1, 0, 2)], axis=0
-    )
-    # u32 state enters the kernel bit-cast to i32 (wrapping arithmetic inside)
-    scalars = jnp.stack(
-        [
-            jax.lax.bitcast_convert_type(jnp.asarray(theta0, jnp.uint32), jnp.int32),
-            jax.lax.bitcast_convert_type(jnp.asarray(dtheta, jnp.uint32), jnp.int32),
-        ]
-    )
-    # stack [G_prev; G_cur] rows for the kernel's single K=256 dot
-    gm = g.reshape(2 * _LANE, outw)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((C, r, _LANE), lambda i, s: (0, i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((C, r, _LANE), lambda i, s: (0, i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((2 * _LANE, outw), lambda i, s: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, C, _LANE), lambda i, s: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, C, _LANE), lambda i, s: (i, 0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((C, r, outw), lambda i, s: (0, i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((C, r, outw), lambda i, s: (0, i, 0), memory_space=pltpu.VMEM),
-        ],
-    )
-    kernel = functools.partial(_chain_kernel, p, r, precision)
+    if hist_r.shape != (C, HIST) or hist_i.shape != (C, HIST):
+        raise ValueError(f"history must be [{C}, {HIST}]")
+    tile = chain_tile(T, K)
+    scalars = jnp.stack([jnp.asarray(theta0, jnp.uint32),
+                         jnp.asarray(dtheta, jnp.uint32)])
+    kernel = functools.partial(_chain_kernel, p=p, k=K, tile=tile)
+    out = jax.ShapeDtypeStruct((C, T, p), jnp.float32)
     yr, yi = pl.pallas_call(
         kernel,
-        out_shape=(
-            jax.ShapeDtypeStruct((C, nb, outw), jnp.float32),
-            jax.ShapeDtypeStruct((C, nb, outw), jnp.float32),
-        ),
-        grid_spec=grid_spec,
+        out_shape=(out, out),
+        grid=(T // tile, C),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
-    )(scalars, xr3, xi3, gm, hr, hi)
+        name="fused_rx_chain",
+    )(scalars, g, xr, xi, hist_r, hist_i)
     return yr.reshape(C, T * p), yi.reshape(C, T * p)

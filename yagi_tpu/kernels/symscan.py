@@ -1,29 +1,24 @@
-"""Fused Pallas symbol-synchronizer scan (symsync.rs:230-266 semantics).
+"""Symbol-synchronizer feedback loop as one Triton kernel (symsync.rs:230-266).
 
-The XLA lax.scan formulation of the symsync feedback loop executes each
-while-body op as an individually dispatched vector instruction on this
-toolchain (~100 ns/op measured — kernels/ROOFLINE.md round-4 notes), which
-caps the loop at ~75 Msps aggregate regardless of channel count. This
-kernel fuses the ENTIRE per-sample control loop — one-hot branch select,
-first-order loop filter, timing update, bounded emission unroll — into one
-Mosaic program: the all-branch MF/dMF precompute streams through VMEM in
-time tiles (auto-pipelined BlockSpec grid), and the loop state rides a VMEM
-scratch across the sequential grid steps (select-against-init on step 0; a
-`pl.when`-guarded init crashes this toolchain's lowering, plain select does
-not — measured round 4, /tmp/tpuq jobs 59/60).
+The XLA formulation (``filter/symsync.execute_slots(backend="xla")``) runs
+the per-sample control loop as a ``lax.scan`` over the block: on the GPU
+every iteration is at least one kernel launch, for a body of a few dozen
+small vector operations. Here each program owns a block of channels and
+runs the WHOLE time loop itself, with the loop state in registers:
 
-Mosaic-survival layout rules applied here (kernels/ROOFLINE.md):
-* P-MAJOR input: x[t] is one (128, C) tile whose SUBLANE groups are
-  [re·mf | re·dmf | im·mf | im·dmf] × P=32 and whose lanes are channels.
-  The round-4 (C, 128) lane-grouped layout made every one-hot select a
-  [C, 32]-shaped op occupying 32 of 128 lanes with per-op relayouts
-  (0.55× the XLA scan); P-in-sublanes keeps every op dense and the
-  selected scalars land directly in the native [C] vector layout;
-* no in-kernel stack/concat — state rows load/store individually;
-* integer iota only (f32 iota is rejected), branch index kept in f32
-  (exact for its small-int range; no in-kernel uint ops).
+* per input sample it loads the window of the last L samples of each of
+  its channels (one row per channel, L padded to a power of two);
+* per emission slot it gathers the selected branch's matched and
+  derivative taps for each channel (a per-lane gather from the [2P, L]
+  bank, which stays in L1) and forms the four dots re·mf, im·mf, re·dmf,
+  im·dmf — 4·L multiply-adds instead of the all-branch 4·P·L;
+* the loop filter, timing update and bounded emission unroll follow
+  ``filter/symsync._emit_sample`` step for step, in f32.
 
-Math is identical to `filter/symsync._emit_sample` (same op order, f32).
+The dots sum the taps in another order than the XLA banded matmul, so the
+two formulations agree to float tolerance; the emission schedule is
+identical. Channels are independent, so the wrapper pads the batch to a
+whole number of programs and slices it back.
 """
 
 from __future__ import annotations
@@ -33,79 +28,79 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-__all__ = ["symsync_scan", "symsync_scan_fused", "pallas_ok", "fused_ok"]
+__all__ = ["NSTATE", "supported", "channel_block", "symsync_scan"]
 
-_NSTATE = 16  # state rows (9 used, padded to a sublane multiple)
-
-
-def pallas_ok(batch_shape: tuple, n: int, npfb: int, E: int = 2) -> bool:
-    """Shapes the kernel path supports: 1-D channel batch, lane-aligned,
-    and an 8-row time tile within the scoped-VMEM budget (the vf/ys blocks
-    put the tile in SUBLANES, so tiles must be multiples of 8; C=2048 with
-    E=3 exceeds the budget at tile 8 — fall back to the XLA scan)."""
-    if not (
-        len(batch_shape) == 1
-        and batch_shape[0] % 128 == 0
-        and npfb == 32
-        and n % 8 == 0
-    ):
-        return False
-    C = batch_shape[0]
-    return 8 * (4 * npfb + 1 + 3 * E) * C * 4 * 2 <= int(13e6)
+NSTATE = 9  # state rows: b, bf, tau, tau_d, rate, delta, dec, pv0, pv1
+_MAX_TAPS = 64
 
 
-def fused_ok(batch_shape: tuple, n: int, npfb: int, L: int, E: int,
-             tile: int = 8) -> bool:
-    """Shapes the in-kernel-MF variant supports (VMEM budget included)."""
-    if not pallas_ok(batch_shape, n, npfb) or n % tile != 0:
-        return False
-    C = batch_shape[0]
-    lpad = -(-L // 8) * 8
-    # double-buffered x/vf/ys blocks + win/mf scratches, bytes
-    vmem = (2 * (tile + lpad) * 2 + tile * 2 + tile * 6 * E
-            + 2 * lpad * tile + 2 * 2 * npfb * tile) * C * 4
-    return vmem <= int(12e6)
+def supported(batch_shape: tuple, taps: int) -> bool:
+    """Shapes the kernel runs: one channel axis and at most 64 taps a branch."""
+    return len(batch_shape) == 1 and batch_shape[0] > 0 and taps <= _MAX_TAPS
 
 
-def _kernel(x_ref, vf_ref, init_ref, const_ref, y_ref, st_ref,
-            state_scratch, *, P: int, E: int, k_out: int):
-    i = pl.program_id(0)
-    first = i == 0
+def channel_block(c: int) -> int:
+    """Channels per program: a power of two in [1, 4] that keeps at least
+    512 programs. The loop is latency-bound, so each program's step costs
+    about the same for 1-4 channels and grows past that (H100 sweep at
+    C=1024 and 2048: 2 and 4 channels per program were fastest)."""
+    bc = 1
+    while bc < 4 and c >= 2 * bc * 512:
+        bc *= 2
+    return bc
 
-    locked = const_ref[0]
-    radj = const_ref[1]
-    pa1 = const_ref[2]
-    pb0 = const_ref[3]
-    kf_inv = const_ref[4]
 
-    C = x_ref.shape[2]
-    # per-sublane branch index modulo P: ONE [4P, C] one-hot masks all four
-    # plane groups at once, and ONE segmented reduce produces the four
-    # selected vectors — 4x fewer select instructions than per-group
-    # [P, C] reduces (the loop is instruction-issue-bound, ~100 ns/op)
-    iota = (
-        jax.lax.broadcasted_iota(jnp.int32, (4 * P, C), 0) & (P - 1)
-    ).astype(jnp.float32)
-    Tt = x_ref.shape[0]
+def _round_half_even(v):
+    """``jnp.round`` (half to even) from floor, for lowerings without round."""
+    f = jnp.floor(v)
+    d = v - f
+    odd = (f - 2.0 * jnp.floor(0.5 * f)) != 0.0
+    return jnp.where((d > 0.5) | ((d == 0.5) & odd), f + 1.0, f)
+
+
+def _kernel(nv_ref, xr_ref, xi_ref, g_ref, st_ref, cst_ref, y_ref, so_ref,
+            *, P: int, L: int, lpad: int, E: int, k_out: int, n: int, bc: int):
+    c0 = pl.program_id(0) * bc
+    cs = pl.ds(c0, bc)
+    rows = (c0 + jnp.arange(bc, dtype=jnp.int32))[:, None]  # [bc, 1]
+    cols = jnp.arange(lpad, dtype=jnp.int32)[None, :]  # [1, lpad]
+    tap_ok = jnp.broadcast_to(cols < L, (bc, lpad))
+    n_valid = nv_ref[0]
+
+    locked = cst_ref[0, cs]
+    radj = cst_ref[1, cs]
+    pa1 = cst_ref[2, cs]
+    pb0 = cst_ref[3, cs]
+    kinv = cst_ref[4, cs]
+    notlocked = locked < 0.5
+
+    def taps(row):  # [bc] branch rows → [bc, lpad] taps (per-lane gather)
+        idx = row.astype(jnp.int32)[:, None] * lpad + cols
+        return g_ref[idx]
 
     def body(t, carry):
         (b, bf, tau, tau_d, rate, delta, dec, pv0, pv1) = carry
-        vs = vf_ref[t] > 0.5
-        row = x_ref[t]  # [128, C]: sublane groups [re·mf | re·dmf | im·mf | im·dmf]
-
+        vs = t < n_valid
+        # window of sample t: xa[t + 1 + i], i < L (xa = [history | block])
+        wcol = jnp.minimum(t + 1 + cols, n + L - 1)
+        wr = plgpu.load(xr_ref.at[rows, wcol], mask=tap_ok, other=0.0)
+        wi = plgpu.load(xi_ref.at[rows, wcol], mask=tap_ok, other=0.0)
         for e in range(E):
             active = (b < P) & vs
             bb = jnp.clip(b, 0.0, P - 1.0)
-            oh4 = (bb[None, :] == iota).astype(jnp.float32)  # [4P, C]
-            g = jnp.sum((row * oh4).reshape(4, P, C), axis=1)  # [4, C]
-            mr, dr, mi, di = g[0], g[1], g[2], g[3]
+            gm = taps(bb)
+            gd = taps(bb + P)
+            mr = jnp.sum(gm * wr, axis=1)
+            mi = jnp.sum(gm * wi, axis=1)
+            dr = jnp.sum(gd * wr, axis=1)
+            di = jnp.sum(gd * wi, axis=1)
 
             if k_out == 1:
-                do_t = (dec == 1.0) & active & (locked < 0.5)
+                do_t = (dec == 1.0) & active & notlocked
             else:
-                do_t = (dec == float(k_out)) & active & (locked < 0.5)
+                do_t = (dec == float(k_out)) & active & notlocked
                 dec = jnp.where((dec == float(k_out)) & active, 0.0, dec)
 
             q = jnp.clip(mr * dr + mi * di, -1.0, 1.0)
@@ -126,221 +121,62 @@ def _kernel(x_ref, vf_ref, init_ref, const_ref, y_ref, st_ref,
                 dec = jnp.where(active, dec + 1.0, dec)
             tau = jnp.where(active, tau + delta, tau)
             bf = jnp.where(active, tau * P, bf)
-            b = jnp.where(active, jnp.round(bf), b)
-            af = active.astype(jnp.float32)
-            # grouped rows [yr slots | yi slots | valid slots] (XLA layout)
-            y_ref[t, e] = af * mr * kf_inv
-            y_ref[t, E + e] = af * mi * kf_inv
-            y_ref[t, 2 * E + e] = af
-
-        vsf = vs.astype(jnp.float32)
-        tau = tau - vsf
-        bf = bf - vsf * P
-        b = b - vsf * P
-        return (b, bf, tau, tau_d, rate, delta, dec, pv0, pv1)
-
-    carry0 = tuple(
-        jnp.where(first, init_ref[r], state_scratch[r]) for r in range(9)
-    )
-    carry = jax.lax.fori_loop(0, Tt, body, carry0)
-    for r in range(9):
-        state_scratch[r] = carry[r]
-        st_ref[r] = carry[r]
-
-
-def symsync_scan(xs4t, vf, state16, consts, *, P: int, E: int, k_out: int,
-                 tile: int = 0, interpret: bool = False):
-    """Run the fused scan.
-
-    ``xs4t``: [n, 4P, C] f32 time-major all-branch outputs, SUBLANE groups
-    [re·mf | re·dmf | im·mf | im·dmf] with channels in lanes (P-major —
-    see module docstring); ``vf``: [n, C] f32 valid-prefix
-    flags (1.0 = consume); ``state16``: [16, C] f32 rows (b, bf, tau,
-    tau_d, rate, delta, dec, pv0, pv1, pad…); ``consts``: [8, C] f32 rows
-    (locked, radj, pa1, pb0, 1/k, pad…). Returns ``(ys [n, 3E, C],
-    state' [16, C])``.
-    """
-    n, _, C = xs4t.shape
-    if tile <= 0:
-        # largest multiple-of-8 divisor of n whose DOUBLE-BUFFERED in+out
-        # blocks fit the ~13 MB scoped-VMEM budget (per time step: x
-        # [4P, C] + vf [C] + ys [3E, C], two buffers each; the vf/ys block
-        # sublane dim requires tile % 8 == 0 — pallas_ok pre-screens the
-        # C/E combinations where even tile=8 overflows)
-        unit = (4 * P + 1 + 3 * E) * C * 4 * 2
-        target = max(8, int(13e6 // unit))
-        tile = 8
-        for cand in range(8, min(n, target) + 1, 8):
-            if n % cand == 0:
-                tile = cand
-    grid = n // tile
-    kern = functools.partial(_kernel, P=P, E=E, k_out=k_out)
-    ys, st = pl.pallas_call(
-        kern,
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((tile, 4 * P, C), lambda i: (i, 0, 0)),
-            pl.BlockSpec((tile, C), lambda i: (i, 0)),
-            pl.BlockSpec((_NSTATE, C), lambda i: (0, 0)),
-            pl.BlockSpec((8, C), lambda i: (0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((tile, 3 * E, C), lambda i: (i, 0, 0)),
-            pl.BlockSpec((_NSTATE, C), lambda i: (0, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n, 3 * E, C), jnp.float32),
-            jax.ShapeDtypeStruct((_NSTATE, C), jnp.float32),
-        ],
-        scratch_shapes=[pltpu.VMEM((_NSTATE, C), jnp.float32)],
-        interpret=interpret,
-    )(xs4t, vf, state16, consts)
-    return ys, st
-
-
-def _kernel_fused(xov_r, xov_i, vf_ref, init_ref, const_ref, g2_ref,
-                  y_ref, st_ref, state_scratch, win_scratch, mf_scratch,
-                  *, P: int, E: int, k_out: int, tile: int):
-    """In-kernel-MF variant: per time tile, the matched/derivative filter
-    outputs are computed HERE by two [2P, Lpad] x [Lpad, tile*C] MXU dots
-    over the raw overlapped sample stream — the 2 GB/block materialized
-    all-branch precompute (and its padded-intermediate HBM traffic, the
-    185-Msps binding term at C=1024) never exists. Loop math is identical
-    to :func:`_kernel`; MF values differ from the XLA banded matmul only
-    by fp32 summation order (~1 ULP), so cross-formulation parity is
-    tolerance-level while the kernel's own block-split invariance stays
-    bit-exact. Measured 6.1 ms per 4096-sample block at C=1024 (686 Msps,
-    ROOFLINE round-5 late findings)."""
-    i = pl.program_id(0)
-    first = i == 0
-    C = xov_r.shape[2]
-    lpad = g2_ref.shape[1]
-
-    locked = const_ref[0]
-    radj = const_ref[1]
-    pa1 = const_ref[2]
-    pb0 = const_ref[3]
-    kf_inv = const_ref[4]
-    iota = (
-        jax.lax.broadcasted_iota(jnp.int32, (4 * P, C), 0) & (P - 1)
-    ).astype(jnp.float32)
-
-    # ---- per-tile MF dots ------------------------------------------------
-    g2 = g2_ref[...]  # [2P, Lpad]
-    for t in range(tile):
-        win_scratch[0, :, t * C : (t + 1) * C] = xov_r[0, t : t + lpad, :]
-        win_scratch[1, :, t * C : (t + 1) * C] = xov_i[0, t : t + lpad, :]
-    mf_scratch[0] = jax.lax.dot_general(
-        g2, win_scratch[0], (((1,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST)
-    mf_scratch[1] = jax.lax.dot_general(
-        g2, win_scratch[1], (((1,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST)
-
-    def body(t, carry):
-        (b, bf, tau, tau_d, rate, delta, dec, pv0, pv1) = carry
-        vs = vf_ref[0, t] > 0.5
-        rowr = mf_scratch[0, :, pl.dslice(t * C, C)]  # [2P, C] = [mf|dmf]
-        rowi = mf_scratch[1, :, pl.dslice(t * C, C)]
-        row = jnp.concatenate([rowr, rowi], axis=0)  # [4P, C]
-
-        for e in range(E):
-            active = (b < P) & vs
-            bb = jnp.clip(b, 0.0, P - 1.0)
-            oh4 = (bb[None, :] == iota).astype(jnp.float32)  # [4P, C]
-            g = jnp.sum((row * oh4).reshape(4, P, C), axis=1)  # [4, C]
-            mr, dr, mi, di = g[0], g[1], g[2], g[3]
-
-            if k_out == 1:
-                do_t = (dec == 1.0) & active & (locked < 0.5)
-            else:
-                do_t = (dec == float(k_out)) & active & (locked < 0.5)
-                dec = jnp.where((dec == float(k_out)) & active, 0.0, dec)
-
-            q = jnp.clip(mr * dr + mi * di, -1.0, 1.0)
-            v0 = q - pa1 * pv0
-            q_hat = pb0 * v0
-            rate_new = rate + radj * q_hat
-            delta_new = rate_new + q_hat
-
-            pv1 = jnp.where(do_t, pv0, pv1)
-            pv0 = jnp.where(do_t, v0, pv0)
-            rate = jnp.where(do_t, rate_new, rate)
-            delta = jnp.where(do_t, delta_new, delta)
-            tau_d = jnp.where(do_t, tau, tau_d)
-
-            if k_out == 1:
-                dec = jnp.where(active, 1.0, dec)
-            else:
-                dec = jnp.where(active, dec + 1.0, dec)
-            tau = jnp.where(active, tau + delta, tau)
-            bf = jnp.where(active, tau * P, bf)
-            b = jnp.where(active, jnp.round(bf), b)
-            af = active.astype(jnp.float32)
-            y_ref[0, t, e] = af * mr * kf_inv
-            y_ref[0, t, E + e] = af * mi * kf_inv
-            y_ref[0, t, 2 * E + e] = af
+            b = jnp.where(active, _round_half_even(bf), b)
+            # rows [yr slots | yi slots | valid slots], channels minor
+            y_ref[t, e, cs] = jnp.where(active, mr * kinv, 0.0)
+            y_ref[t, E + e, cs] = jnp.where(active, mi * kinv, 0.0)
+            y_ref[t, 2 * E + e, cs] = active.astype(jnp.float32)
 
         vsf = vs.astype(jnp.float32)
         return (b - vsf * P, bf - vsf * P, tau - vsf, tau_d, rate, delta,
                 dec, pv0, pv1)
 
-    carry0 = tuple(
-        jnp.where(first, init_ref[r], state_scratch[r]) for r in range(9)
-    )
-    carry = jax.lax.fori_loop(0, tile, body, carry0)
-    for r in range(9):
-        state_scratch[r] = carry[r]
-        st_ref[r] = carry[r]
+    carry = jax.lax.fori_loop(
+        0, n, body, tuple(st_ref[r, cs] for r in range(NSTATE)))
+    for r in range(NSTATE):
+        so_ref[r, cs] = carry[r]
 
 
-def symsync_scan_fused(xt_r, xt_i, vf, state16, consts, g2, *, P: int,
-                       E: int, k_out: int, tile: int = 8,
-                       interpret: bool = False):
-    """Run the in-kernel-MF fused scan.
+@functools.partial(
+    jax.jit, static_argnames=("P", "E", "k_out", "bc", "interpret"))
+def symsync_scan(xr, xi, n_valid, bank, state, consts, *, P: int, E: int,
+                 k_out: int, bc: int = 0, interpret: bool = False):
+    """Run the symsync control loop over one block.
 
-    ``xt_r``/``xt_i``: [n + Lpad, C] TIME-MAJOR raw sample planes (the
-    L−1-sample history at the front, zero right-padding to n + Lpad);
-    ``vf``: [n, C] valid flags; ``state16``/``consts`` as
-    :func:`symsync_scan`; ``g2``: [2P, Lpad] tap matrix with
-    ``g2[i, j] = bank[i, L-1-j]`` (bank = [mf; dmf]), zero-padded columns.
-    Returns ``(ys [n, 3E, C], state' [16, C])``.
+    ``xr``/``xi``: [C, L + n] planes of ``[history | block]`` (history =
+    the object's L-sample window); ``n_valid``: scalar count of valid
+    samples (``n`` when every sample counts); ``bank``: [2P, L] taps
+    ``[mf; dmf]`` in convolution order; ``state``: [9, C] f32 rows (b, bf,
+    tau, tau_d, rate, delta, dec, pv0, pv1); ``consts``: [5, C] f32 rows
+    (locked, radj, pa1, pb0, 1/k). Returns ``(ys [n, 3E, C], state')``
+    with ``ys`` rows ``[yr slots | yi slots | valid slots]``.
     """
-    n, C = vf.shape
-    lpad = g2.shape[1]
-    grid = n // tile
-    # overlapped time blocks [grid, tile + Lpad, C] (≈(1 + Lpad/tile)x the
-    # 16 MB raw stream — vs the 2 GB materialized all-branch precompute)
-    idx = (jnp.arange(grid)[:, None] * tile
-           + jnp.arange(tile + lpad)[None, :])
-    xov_r = jnp.take(xt_r, idx, axis=0)
-    xov_i = jnp.take(xt_i, idx, axis=0)
-    vf3 = vf.reshape(grid, tile, C)
-    kern = functools.partial(_kernel_fused, P=P, E=E, k_out=k_out, tile=tile)
+    C, m = xr.shape
+    twoP, L = bank.shape
+    n = m - L
+    if twoP != 2 * P or L > _MAX_TAPS:
+        raise ValueError(f"bank must be [2P, ≤{_MAX_TAPS}], got {bank.shape}")
+    bc = bc or channel_block(C)
+    cp = -(-C // bc) * bc
+    if cp != C:  # channels are independent: edge-pad to whole programs
+        pad = lambda v: jnp.pad(v, [(0, cp - C), (0, 0)], mode="edge")  # noqa: E731
+        xr, xi = pad(xr), pad(xi)
+        state, consts = pad(state.T).T, pad(consts.T).T
+    lpad = max(2, 1 << (L - 1).bit_length())
+    # g[r, i] = bank[r, L-1-i]: window position i (oldest first) meets the
+    # tap of lag L-1-i; zero columns pad L to a power of two
+    g = jnp.pad(bank[:, ::-1], [(0, 0), (0, lpad - L)]).reshape(-1)
+    nv = jnp.reshape(jnp.asarray(n_valid, jnp.int32), (1,))
+    kern = functools.partial(_kernel, P=P, L=L, lpad=lpad, E=E,
+                             k_out=k_out, n=n, bc=bc)
     ys, st = pl.pallas_call(
         kern,
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((1, tile + lpad, C), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, tile + lpad, C), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, tile, C), lambda i: (i, 0, 0)),
-            pl.BlockSpec((_NSTATE, C), lambda i: (0, 0)),
-            pl.BlockSpec((8, C), lambda i: (0, 0)),
-            pl.BlockSpec(g2.shape, lambda i: (0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, tile, 3 * E, C), lambda i: (i, 0, 0, 0)),
-            pl.BlockSpec((_NSTATE, C), lambda i: (0, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((grid, tile, 3 * E, C), jnp.float32),
-            jax.ShapeDtypeStruct((_NSTATE, C), jnp.float32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((_NSTATE, C), jnp.float32),
-            pltpu.VMEM((2, lpad, tile * C), jnp.float32),
-            pltpu.VMEM((2, 2 * P, tile * C), jnp.float32),
-        ],
+        out_shape=(jax.ShapeDtypeStruct((n, 3 * E, cp), jnp.float32),
+                   jax.ShapeDtypeStruct((NSTATE, cp), jnp.float32)),
+        grid=(cp // bc,),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
         interpret=interpret,
-    )(xov_r, xov_i, vf3, state16, consts, g2)
-    return ys.reshape(n, 3 * E, C), st
+        name="symsync_scan",
+    )(nv, xr, xi, g, state, consts)
+    return ys[..., :C], st[:, :C]

@@ -3,7 +3,7 @@
 Behavioral spec: /root/reference/src/dotprod/mod.rs:13-17 — sum(a[i]·b[i])
 with NO conjugation for any of the rrrf/rcc/crc/ccc type combinations. In
 this framework the hot paths never call this directly (streaming filters run
-the banded-MXU formulations in filter/_conv.py); it exists as the public
+the banded-matmul formulations in filter/_conv.py); it exists as the public
 building block and semantic anchor.
 """
 

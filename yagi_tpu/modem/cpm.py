@@ -10,7 +10,7 @@ theta integrates the pulse-shaped instantaneous frequency. Demodulation is
 non-coherent: frequency discrimination (``arg(conj(y')y)``) followed by the
 receive matched filter and symbol-rate decisions.
 
-TPU-first block math: the per-sample interpolate→integrate loop of the
+Block-parallel math: the per-sample interpolate→integrate loop of the
 reference becomes one XLA convolution (zero-stuffed symbols * pulse) plus
 one cumulative sum for the phase; demodulation is one conjugate-product,
 one convolution, and a strided gather — no per-sample Python. Streaming

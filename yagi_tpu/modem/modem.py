@@ -2,12 +2,12 @@
 
 Behavioral spec: /root/reference/src/modem/modem.rs + submodules (psk, dpsk,
 ask, qam, apsk, bpsk, qpsk, ook, sqam32/128, pi4dqpsk, V.29, arb*opt,
-arb64vt/ui, arbitrary tables). TPU-first design:
+arb64vt/ui, arbitrary tables). Block-parallel design:
 
 * Every memoryless scheme is materialized as a constellation table [M]
   (complex64) with liquid's exact gray coding and normalization; block
   modulation is ONE gather, block demodulation is ONE argmin over
-  |x - table|² (lowered to an MXU-friendly matmul form). liquid's
+  |x - table|² (lowered to a matmul form). liquid's
   scheme-specific slicers (psk.rs:62, qam.rs:103, apsk.rs:87, ...) are
   decision-region-equivalent to nearest-neighbor on the same table.
 * Differential schemes (DPSK, π/4-DQPSK) carry a phase state; block
@@ -489,7 +489,7 @@ class Modem:
     # -------------------------------------------------------------- sources
     def random_symbol(self, key):
         """Uniform random symbol via jax.random (reference uses its internal
-        MSequence, modem.rs:238; seeded jax.random is the TPU-native source)."""
+        MSequence, modem.rs:238; seeded jax.random is the native source)."""
         return jax.random.randint(key, (), 0, self.constellation_size, dtype=jnp.uint32)
 
     def random_symbols(self, key, shape):

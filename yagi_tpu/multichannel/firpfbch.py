@@ -11,9 +11,9 @@ Analysis math (critically sampled, M channels, decimation M):
     y_k[n] = Σ_j h[j]·x[nM-j]·e^{+j2πkj/M}
            = Σ_b e^{+j2πkb/M} · u_b[n],   u_b[n] = Σ_p h[b+pM]·x[(n-p)M-b]
   i.e. branch b FIR-filters the delayed decimated stream s_b[i] = x[iM-b],
-  and an unnormalized inverse DFT across branches yields the channels. On
-  TPU the M branch filters run as ONE grouped XLA convolution
-  (feature_group_count=M) and the DFT across branches is one batched FFT.
+  and an unnormalized inverse DFT across branches yields the channels. The
+  M branch filters run as p shifted multiply-adds fused into one pass, and
+  the DFT across branches is one matmul (or batched FFT for M > 128).
 
 Synthesis is the dual: unnormalized IDFT across channels → branch FIRs →
 commutate into the output stream. Analysis→synthesis reconstructs the input
@@ -39,9 +39,8 @@ def _grouped_branch_conv(xb: jnp.ndarray, branches: jnp.ndarray) -> jnp.ndarray:
     branches [M, p] in conv order → [..., M, N].
 
     Written as p shifted fused multiply-adds (the per-branch taps broadcast
-    over time) rather than a depthwise grouped conv: feature_group_count=M
-    convs serialize per group on the TPU backend, while this form is pure
-    vector ALU work that XLA fuses into one pass.
+    over time) rather than a depthwise grouped conv: pure elementwise work
+    that XLA fuses into one pass.
     """
     M, p = branches.shape
     n = xb.shape[-1] - (p - 1)
@@ -62,9 +61,9 @@ def _idft_matrix(M: int) -> np.ndarray:
 
 
 def _idft(u: jnp.ndarray, axis_m: int) -> jnp.ndarray:
-    """IDFT over axis -2 of [..., M, N]: MXU matmul for small M (the FFT op
-    would transpose a complex array twice and underutilize the MXU at these
-    sizes), jnp.fft.ifft beyond 128 channels."""
+    """IDFT over axis -2 of [..., M, N]: one HIGHEST-precision matmul for
+    small M (no transposes of the complex array), jnp.fft.ifft beyond 128
+    channels."""
     M = u.shape[-2]
     if M <= 128:
         w = jnp.asarray(_idft_matrix(M))
@@ -78,11 +77,10 @@ def _sliding_residue_conv(xa: jnp.ndarray, branches, P: int) -> jnp.ndarray:
     """c_r[t] = Σ_q h[r+qM]·xa[e_t − r − qM] for every step t and residue r,
     with e_t = (L−2) + (t+1)·P, as ONE strided VALID convolution.
 
-    Replaces the [T, L] frame gather (gathers are scalar-unit-bound on TPU)
-    used by the sliding-transform channelizers (Firpfbch2 / Firpfbchr):
-    residue r's taps become a dense length-L filter F_r[j] = h[j]·[j≡r (M)],
-    all M filters share one alignment (lhs offset P−1), and XLA maps the
-    strided multi-filter conv onto the MXU.
+    Replaces the [T, L] frame gather used by the sliding-transform
+    channelizers (Firpfbch2 / Firpfbchr): residue r's taps become a dense
+    length-L filter F_r[j] = h[j]·[j≡r (M)], all M filters share one
+    alignment (lhs offset P−1), and XLA runs one strided multi-filter conv.
     """
     branches = np.asarray(branches)
     M, p = branches.shape
@@ -183,12 +181,12 @@ class Firpfbch:
             raise ConfigError(f"input length must be a multiple of M={M}")
         n = total // M
 
-        # branch streams s_b[i] = x[iM - b] WITHOUT a gather (gathers fall
-        # off the TPU vector units): prepend one history block, reshape to
-        # M-sample blocks, lane-reverse, shift one block. xfull block i,
-        # lane c = x[(i-1)M + c], so reversed lanes give
+        # branch streams s_b[i] = x[iM - b] WITHOUT a gather: prepend one
+        # history block, reshape to M-sample blocks, reverse each block,
+        # shift one block. xfull block i, column c = x[(i-1)M + c], so
+        # reversed columns give
         # xrev[i, j] = x[iM - 1 - j] ⇒ s_b[i] = xrev[i, b-1] (b ≥ 1) and
-        # s_0[i] = x[iM] = block i+1, lane 0.
+        # s_0[i] = x[iM] = block i+1, column 0.
         lead = x.shape[:-1] + (1,)
         xfull = jnp.concatenate(
             [jnp.zeros(lead, x.dtype), self.raw_tail, x], axis=-1

@@ -8,10 +8,10 @@ firpfbch2): each step consumes P input samples and produces one output per
 channel, so the per-channel output rate is fs/P — an oversampled
 channelizer whenever P < M.
 
-TPU-first: a step-t output is the M-point DFT-bank response of the
+Block-parallel: a step-t output is the M-point DFT-bank response of the
 prototype window ending at the newest sample, evaluated for ALL steps at
 once as one [T, L] gather + one einsum (branch-tap contraction, lands on
-the MXU) + one batched FFT + a phase twiddle; exactly the Firpfbch2
+one matmul) + one batched FFT + a phase twiddle; exactly the Firpfbch2
 sliding-transform generalized from M/2 to arbitrary P (firpfbch.py:209).
 """
 

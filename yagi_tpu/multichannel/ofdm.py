@@ -8,7 +8,7 @@ timing metric + fractional CFO) and an S1 long-sync symbol (cross
 correlation -> channel estimate), then data symbols with per-symbol pilot
 phase tracking and one-tap frequency-domain equalization.
 
-TPU-first: generation and demodulation treat the whole frame as a
+Block-parallel: generation and demodulation treat the whole frame as a
 ``[num_symbols, M]`` batch — one batched (I)FFT, one vectorized equalizer
 multiply, and a closed-form LSQ pilot phase fit per symbol (vectorized
 across symbols). No per-sample loops anywhere; only the initial detection

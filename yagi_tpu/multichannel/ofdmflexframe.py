@@ -9,7 +9,7 @@ two FEC levels) followed by the payload; the synchronizer detects the
 frame, equalizes, decodes the header, reconstructs the payload decoder,
 and validates the payload.
 
-TPU-first: all OFDM (de)modulation is the batched-FFT OfdmFrameGen/Sync
+Block-parallel: all OFDM (de)modulation is the batched-FFT OfdmFrameGen/Sync
 (one IFFT/FFT over [num_symbols, M]); header/payload bit processing is the
 QPacketModem (batched modem gather/argmin + Viterbi scan).
 """

@@ -142,7 +142,7 @@ class IqStreamLoader:
     """Native double-buffered IQ capture reader (native/iq_loader.cpp).
 
     Background C++ thread reads interleaved IQ from disk and deinterleaves
-    into planar f32 blocks — the exact boundary format the TPU runtime
+    into planar f32 blocks — the exact boundary format the device runtime
     requires (utils/planar.py) — so Python only blocks when the disk can't
     keep up with the device. Formats: "cf32", "ci16" (÷32768), "cu8"
     (offset-128, ÷128).

@@ -6,8 +6,8 @@ synthesis modes:
 
   "nco"   — 1024-entry sine LUT, rounded nearest index (nco.rs:47-51)
   "vco"   — 1024-entry {value, skew} LUT with linear interpolation (vco.rs)
-  "exact" — TPU-native sin/cos on the VPU (no table; higher purity, faster
-            than a gather on TPU — the recommended mode for new code)
+  "exact" — device sin/cos (no table; higher purity, no gather — the
+            recommended mode for new code)
 
 Block mixing vectorizes the phase ramp: θ_n = θ0 + n·dθ in wrapping uint32,
 then one fused multiply — bit-identical to stepping per sample

@@ -3,7 +3,7 @@
 Fills liquid-dsp's ``gradsearch`` / ``qnsearch`` optim objects (both ❓ —
 un-ported — in /root/reference/LIQUID_COMPAT.md; the reference's optim module
 holds only qs1dsearch, /root/reference/src/optim/qs1dsearch.rs). Host-side
-float64 — these run at design/configuration time, not in the TPU hot path.
+float64 — these run at design/configuration time, not in the hot path.
 
 Semantics follow liquid's optim conventions: numerically estimated gradient
 (central differences), normalized descent direction with momentum

@@ -1,4 +1,4 @@
-"""Device-mesh streaming distribution (TPU-native; no reference equivalent)."""
+"""Device-mesh streaming distribution (no reference equivalent)."""
 
 from .stream import (  # noqa: F401
     halo_exchange_left,

@@ -2,7 +2,7 @@
 
 BASELINE.json config[4]: the M-channel firpfbch channelizer with time-blocks
 sharded across devices. Each device receives its contiguous time block plus a
-p·M-sample halo from its left neighbor via ONE `ppermute` over ICI, runs the
+p·M-sample halo from its left neighbor via ONE `ppermute`, runs the
 local analyzer on [halo | block] with zero initial state, and drops the first
 p output steps (which depended only on the halo) — classic overlap-save. The
 retained outputs are bit-identical to a single-device run because the
@@ -77,7 +77,7 @@ def sharded_channelize_to_channels(ch: Firpfbch, x: jnp.ndarray, mesh: Mesh):
     time history on one device (feedback loops — symsync, PLL, AGC — are
     sequential in time). This is SURVEY.md §7 phase-5's channel↔time
     redistribution: each device channelizes its local time block (ppermute
-    halo, overlap-save), then ONE ``jax.lax.all_to_all`` over ICI splits the
+    halo, overlap-save), then ONE ``jax.lax.all_to_all`` splits the
     M channels into n_dev groups and concatenates the time blocks, leaving
     device d with channels [d·M/n, (d+1)·M/n) over the whole stream.
 
@@ -153,10 +153,10 @@ def _stream_local_pipeline(ch: Firpfbch, demod=None):
     carry) and COMPUTES block i's halo + branch-FIR + IDFT — the two have
     no data dependence, so XLA's latency-hiding scheduler can run the
     collective's start→done window concurrently with the analyzer compute
-    (evidence: tools/hlo_overlap_check.py → OVERLAP_HLO.md). This is the
-    structure the ≥90% weak-scaling prediction in SCALING.md §4 rests on —
-    overlap is no longer an assumption about XLA's treatment of one
-    monolithic block, it is the shape of the program.
+    (tests/test_parallel.py checks the traced program's structure). Overlap
+    is then not an assumption about XLA's treatment of one monolithic
+    block, it is the shape of the program; whether NVLink hides the
+    collective on the GPU is not measured.
 
     Halo continuity across the stream: device d's block-i halo is the tail
     of device d−1's block i (same iteration); device 0's halo is the tail

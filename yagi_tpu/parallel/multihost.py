@@ -1,11 +1,11 @@
-"""Multi-host (DCN-level) streaming distribution.
+"""Multi-host streaming distribution.
 
 The reference is a single-threaded library (SURVEY.md §2.7); this layer is
-the TPU-native scale-out path: each host feeds its local time blocks of the
+the scale-out path: each host feeds its local time blocks of the
 sample stream, a global ``Mesh`` spans all hosts' devices, and the same
 ``shard_map`` streaming kernels (ppermute halo exchange, all_to_all channel
 redistribution) run unchanged — XLA routes the shard-boundary collectives
-over ICI within a host and DCN across hosts.
+over the intra-host links within a host and the network across hosts.
 
 Wiring order on every process (see tools/multihost_worker.py for the
 runnable pattern, testable on CPU with 2 processes):
@@ -40,9 +40,9 @@ def initialize_multihost(
 ) -> None:
     """Join the JAX distributed runtime (idempotent).
 
-    With no arguments, cluster-autodetection applies (TPU pods set the
-    environment); explicit arguments support generic clusters and the
-    2-process CPU conformance test. Safe to call twice.
+    With no arguments, JAX's cluster autodetection applies; explicit
+    arguments (coordinator address, process count and id) support generic
+    clusters and the 2-process CPU conformance test. Safe to call twice.
     """
     if jax._src.distributed.global_state.client is not None:  # already up
         return
@@ -58,7 +58,7 @@ def global_time_mesh(ch: int = 1) -> Mesh:
     """('ch', 'time') mesh over ALL devices of ALL processes.
 
     Device order follows ``jax.devices()`` (process-major), so consecutive
-    time shards land on one host first — halo ppermutes cross DCN only once
+    time shards land on one host first — halo ppermutes cross the network only once
     per host boundary.
     """
     devices = np.asarray(jax.devices())
@@ -82,7 +82,7 @@ def distribute_time_stream(x_local: np.ndarray, mesh: Mesh) -> jax.Array:
 
 
 def gather_to_hosts(y: jax.Array) -> np.ndarray:
-    """Gather a sharded result to every host as numpy (DCN allgather)."""
+    """Gather a sharded result to every host as numpy (cross-host allgather)."""
     from jax.experimental import multihost_utils
 
     return np.asarray(multihost_utils.process_allgather(y, tiled=True))

@@ -1,11 +1,11 @@
 """Multi-device streaming: time-block sharding with overlap-save halo exchange.
 
 No reference equivalent (the reference is single-threaded; SURVEY.md §2.7).
-This is the TPU-native distribution layer: a continuous sample stream is laid
+This is the distribution layer: a continuous sample stream is laid
 out as [channels, time] with channels sharded across one mesh axis and time
 blocks across another. Causal filters need the last L-1 samples of the
 previous time block — the "halo" — which each device receives from its left
-neighbor via a single `jax.lax.ppermute` over ICI before running its local
+neighbor via a single `jax.lax.ppermute` before running its local
 convolution. Output is bit-identical to the same per-block computation run
 sequentially on one device, because each device computes exactly the same
 concat(history, block) convolution it would locally.
@@ -43,7 +43,7 @@ def make_stream_mesh(n_devices: int | None = None, ch: int = 1):
 def halo_exchange_left(block: jnp.ndarray, halo: int, axis_name: str) -> jnp.ndarray:
     """Return the last ``halo`` samples of the LEFT neighbor's block.
 
-    Device 0 receives zeros (stream start). Single ppermute over ICI.
+    Device 0 receives zeros (stream start). Single ppermute.
     """
     tail = block[..., block.shape[-1] - halo :]
     n = jax.lax.axis_size(axis_name)

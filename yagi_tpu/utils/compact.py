@@ -4,21 +4,18 @@ Feedback loops (symsync, QamRx) emit fixed-capacity slot buffers with a
 validity mask; the liquid-style public APIs (symsync.rs:219 ``execute``,
 symtrack ``execute``) return the valid samples front-compacted with a count.
 No reference counterpart for the algorithm itself — the reference is
-sequential host code where compaction is free; on TPU it is a real data
-movement pass and its formulation matters:
+sequential host code where compaction is free; on a device it is a real
+data movement pass and its formulation matters:
 
 * ``sort`` (default): single stable ``lax.sort`` with the invalidity flag
   as key and the value planes as payload operands. O(N log² N) bitonic but
   ONE fused pass — no separate argsort + index gather.
-* ``argsort``: the round-3 form (argsort + take_along_axis).
+* ``argsort``: argsort + take_along_axis.
 * ``scatter``: destination index = cumsum(valid)−1, one ``put_along_axis``
-  scatter into a capacity+1 buffer. O(N) on paper — but XLA:TPU lowers a
-  batched 1-D scatter to a serialized per-element loop.
+  scatter into a capacity+1 buffer. O(N) on paper.
 
-Round-4 same-session A/B on real TPU (complex [256, 16384], 20-deep chains,
-/tmp/tpuq job 35): sort ≈ 3.8 ms, argsort ≈ 87 ms, scatter ≈ 328 ms per
-block → sort is the production default (bit-identical outputs across all
-three).
+All three give bit-identical outputs; which is fastest on the GPU is not
+measured.
 """
 
 from __future__ import annotations

@@ -1,10 +1,9 @@
 """Planar (re/im) boundary adapters for complex pytrees.
 
-The production TPU runtime in this environment rejects complex dtypes at the
-host↔device and jit entry/exit boundary (uploads poison the session, complex
-jit outputs hang), while complex math *inside* a single XLA program is fully
-supported — XLA lowers it to planar pairs anyway. TPU-native rule: ship
-re/im planes across every boundary, reconstitute complex inside the program.
+A planar layout carries a complex array as two real planes (re, im) across
+host↔device and jit boundaries; complex math *inside* a program is
+unchanged — XLA lowers it to planar pairs anyway. Kernels take the planes
+directly (Pallas kernels have no complex dtype).
 
 ``planar_jit(f)`` wraps any state-threading function (e.g.
 ``lambda chain, x: chain.step(x)``) so that every complex leaf of its inputs
@@ -14,8 +13,7 @@ unchanged. Streaming state pytrees round-trip planar between steps without
 ever materializing complex at the boundary.
 
 There is no reference counterpart (the reference is single-threaded host Rust
-with native Complex32, /root/reference/src/lib.rs); this is part of the
-TPU-first runtime layer.
+with native Complex32, /root/reference/src/lib.rs).
 """
 
 from __future__ import annotations
@@ -101,17 +99,15 @@ def planar(f):
 
 
 def planar_jit(f, **jit_kwargs):
-    """``jax.jit`` with planar complex boundaries (TPU-safe)."""
+    """``jax.jit`` with planar complex boundaries."""
     return jax.jit(planar(f), **jit_kwargs)
 
 
 # ---------------------------------------------------------------------------
-# Feedback-scan boundary rules (measured on the production TPU toolchain,
-# kernels/ROOFLINE.md): a lax.scan whose xs, ys, or carry contains complex
-# leaves, whose ys contains bool/int leaves, or whose ys is a TUPLE of
-# arrays, executes >1000x slower than the same scan with planar-f32
-# boundaries and ONE packed f32 ys array. planar_scan() enforces the rules
-# mechanically for any body.
+# Feedback-scan boundary rules: a lax.scan carries planar f32 / int32
+# leaves in its xs and carry and emits ONE packed f32 ys array per step (no
+# complex, bool or tuple-of-arrays boundaries). planar_scan() enforces the
+# rules mechanically for any body.
 # ---------------------------------------------------------------------------
 
 
@@ -223,13 +219,10 @@ def _unpack_ys(packed, recover):
 def loop_constants(*vals, like):
     """Materialize loop-invariant scalars as vectors before a lax.scan.
 
-    On the production TPU toolchain, XLA sinks input-derived computations —
-    even a rank-0 dynamic-slice like ``coeffs[1]`` — into the while-loop
-    body, re-executing them EVERY iteration (~35 ms per 4096-step scan for
-    four such scalars, measured; kernels/ROOFLINE.md feedback-scan rules).
-    Broadcasting to the batch shape and fencing with an optimization barrier
-    forces one materialization outside the loop (measured back to the
-    constant-coefficient speed).
+    XLA may sink input-derived computations — even a rank-0 dynamic-slice
+    like ``coeffs[1]`` — into the while-loop body, re-executing them every
+    iteration. Broadcasting to the batch shape and fencing with an
+    optimization barrier forces one materialization outside the loop.
 
     Returns the values broadcast to ``like``'s shape, barrier-fenced; pass
     each into the scan body instead of indexing arrays there.
@@ -241,7 +234,7 @@ def loop_constants(*vals, like):
 
 
 def planar_scan(f, init, xs, *, unroll: int = 1, reverse: bool = False):
-    """``jax.lax.scan`` with TPU-safe boundary dtypes (see module rules).
+    """``jax.lax.scan`` with planar boundary dtypes (see module rules).
 
     ``f(carry, x) -> (carry, ys)`` sees ordinary complex/bool values; the
     scan itself only ever carries planar f32 / int32 leaves and emits one

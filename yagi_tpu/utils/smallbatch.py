@@ -1,13 +1,12 @@
-"""Small-batch lane padding for feedback-scan objects.
+"""Small-batch padding for feedback-scan objects.
 
-A 1-D channel batch with C < 8 lanes compiles the per-step scan body into
-degenerate near-scalar ops on this toolchain: QamRx at C=1 measured 151 ms per
-4096-sample block vs 22 ms at C=4..64 (FEEDBACK_PROFILE round 4; VERDICT r4
-task 5). Padding the batch to 8 lanes (edge-replicated so the dead channels
-follow sane dynamics — zero-padding would starve the AGC/LMS normalizers)
-and slicing the outputs back restores the C>=4 latency at C=1 without
-changing any real channel's results: every op in the scan bodies is
-per-channel elementwise, so replicated channels never couple back.
+A 1-D channel batch with C < 8 channels compiles the per-step scan body of
+the XLA route into near-scalar ops. Padding the batch to 8 channels
+(edge-replicated so the dead channels follow sane dynamics — zero-padding
+would starve the AGC/LMS normalizers) and slicing the outputs back keeps the
+body vectorized without changing any real channel's results: every op in
+the scan bodies is per-channel elementwise, so replicated channels never
+couple back. Whether this still pays on the GPU is not measured.
 
 Used internally by Symsync.execute_slots and QamRx.step_masked; the public
 API shapes are unchanged.
